@@ -1,0 +1,226 @@
+"""Bucketed whole-model programming pipeline (DESIGN.md Sec. 10).
+
+The shared hot path for model-scale programming:
+
+* `bucket_sizes` decomposes the total column count into a small menu of
+  power-of-two buckets, so an arbitrary model runs at most
+  log2(max/min)+1 distinct dispatch shapes.
+* `get_program_fn` is the ONE cache of batched-programming entries
+  (PyTorch runs eagerly, so an entry is a closure, not a compiled
+  program; `compile_count()` still counts the distinct (config, bucket
+  shape) dispatches, which bounds what a later CUDA-graph capture
+  would record).
+* `program_packed_columns` runs many independently-packed column blocks
+  (one per weight leaf) through the bucket dispatches and splits the
+  results back per block.
+
+Per-column RNG (see `core.rng`): every column draws from
+``fold_in(key, uid)``, so a column's programmed value depends only on
+(key, uid) — not on bucket boundaries or padding.  That is what makes
+the bucketed path bit-identical to the per-leaf path.
+
+Nothing here synchronizes with the device; `host_fetch` is the one
+counted transfer point (`host_sync_count()`), and a batched deploy calls
+it exactly once.  Nothing here updates a tensor in place, so slices of
+caller-held state (targets, d2d) are safe to pass to the engine.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.obs import metrics as obs_metrics
+
+from . import device as dev_mod
+from . import rng
+from .cost import CircuitCost
+from .types import WVConfig
+from .wv import WVStats, program_columns
+
+__all__ = [
+    "bucket_sizes",
+    "get_program_fn",
+    "program_packed_columns",
+    "sample_d2d_for",
+    "host_fetch",
+    "compile_count",
+    "host_sync_count",
+    "reset_counters",
+]
+
+DEFAULT_MIN_BUCKET = 256
+DEFAULT_MAX_BUCKET = 1 << 18
+
+_FN_CACHE: dict = {}
+_TRACED: set = set()
+
+COMPILE_COUNTER = "pipeline.compiles"
+SYNC_COUNTER = "pipeline.host_syncs"
+
+
+def compile_count() -> int:
+    """Distinct (config, bucket-shape) dispatches run so far."""
+    return int(obs_metrics.value(COMPILE_COUNTER))
+
+
+def host_sync_count() -> int:
+    """`host_fetch` device->host synchronizations performed so far."""
+    return int(obs_metrics.value(SYNC_COUNTER))
+
+
+def reset_counters() -> None:
+    """Zero the pipeline's registry counters (the entry cache survives)."""
+    obs_metrics.reset("pipeline.")
+
+
+def host_fetch(tree):
+    """The pipeline's single device->host transfer point (counted)."""
+    return obs_metrics.fetch(tree, counter=SYNC_COUNTER)
+
+
+def bucket_sizes(
+    c_total: int,
+    min_bucket: int = DEFAULT_MIN_BUCKET,
+    max_bucket: int = DEFAULT_MAX_BUCKET,
+) -> list[int]:
+    """Greedy power-of-two decomposition of a column count.
+
+    Returns bucket sizes summing to >= c_total, each a power of two in
+    [min_bucket, max_bucket].  Only the LAST bucket is padded (by at
+    most min_bucket - 1 columns).
+    """
+    assert min_bucket > 0 and min_bucket & (min_bucket - 1) == 0, min_bucket
+    assert max_bucket >= min_bucket and max_bucket & (max_bucket - 1) == 0, (
+        max_bucket
+    )
+    sizes: list[int] = []
+    rem = c_total
+    while rem >= min_bucket:
+        s = min(max_bucket, 1 << (rem.bit_length() - 1))
+        sizes.append(s)
+        rem -= s
+    if rem > 0 or not sizes:
+        sizes.append(min_bucket)
+    return sizes
+
+
+def get_program_fn(cfg: WVConfig, cost: CircuitCost):
+    """The shared batched-programming entry: (key, targets, d2d, col_ids).
+
+    Returns ``fn(key, (C, N) targets, (C, N) d2d, (C,) col_ids) ->
+    (g, WVStats)``, cached per (cfg, cost).
+    """
+    cache_key = (cfg, cost)
+    entry = _FN_CACHE.get(cache_key)
+    if entry is None:
+
+        def entry(key, targets, d2d, col_ids):
+            tk = (cache_key, tuple(targets.shape))
+            if tk not in _TRACED:
+                _TRACED.add(tk)
+                obs_metrics.inc(COMPILE_COUNTER)
+            return program_columns(
+                key, targets, cfg, cost=cost, d2d=d2d, col_ids=col_ids
+            )
+
+        _FN_CACHE[cache_key] = entry
+    return entry
+
+
+def sample_d2d_for(key, col_ids, shape, dev_cfg):
+    """Per-column-stream d2d sample, mirroring `program_columns`' own
+    key schedule (`k_d2d` = first of the column key's 3-way split).
+
+    Sampled `DEFAULT_MAX_BUCKET` columns at a time: each column's stream
+    is its own, so chunking changes no value and bounds the generator's
+    scratch.
+    """
+    parts = []
+    for off in range(0, int(shape[0]), DEFAULT_MAX_BUCKET):
+        ids = col_ids[off: off + DEFAULT_MAX_BUCKET]
+        k_d2d = rng.split(rng.fold_col_keys(key, ids), 3)[0]
+        parts.append(dev_mod.sample_d2d(k_d2d, (ids.shape[0],) + tuple(shape[1:]),
+                                        dev_cfg))
+    if not parts:
+        return torch.empty(tuple(shape), dtype=torch.float32, device=key.device)
+    return torch.cat(parts) if len(parts) > 1 else parts[0]
+
+
+def program_packed_columns(
+    key: torch.Tensor,
+    blocks: Sequence[torch.Tensor],
+    cfg: WVConfig,
+    cost: CircuitCost | None = None,
+    *,
+    min_bucket: int = DEFAULT_MIN_BUCKET,
+    max_bucket: int = DEFAULT_MAX_BUCKET,
+    uid_base: int = 0,
+) -> tuple[list[torch.Tensor], list[WVStats], list[torch.Tensor]]:
+    """Program many packed column blocks in a few bucketed dispatches.
+
+    Args:
+      key: master key (column sub-streams derive from it).
+      blocks: list of (C_i, N) target-level tensors (e.g. one per leaf).
+      cfg / cost: WV configuration and circuit constants.
+      min_bucket / max_bucket: power-of-two bucket bounds.
+      uid_base: first column uid (block b's column j gets uid
+        ``uid_base + sum(C_<b) + j``).  Filler uids for bucket padding
+        start at ``uid_base + c_total``.
+
+    Returns (g_blocks, stats_blocks, d2d_blocks), split back to the input
+    block boundaries.  Everything stays on the device; no host syncs.
+    """
+    if cost is None:
+        cost = CircuitCost()
+    sizes = [int(b.shape[0]) for b in blocks]
+    c_total = sum(sizes)
+    if c_total == 0:
+        return [], [], []
+    device = key.device
+    n = int(blocks[0].shape[1])
+    targets = torch.cat(list(blocks)) if len(blocks) > 1 else blocks[0]
+    targets = targets.to(device=device, dtype=torch.float32)
+    uids = uid_base + torch.arange(c_total, dtype=torch.int64, device=device)
+    pad_uid_base = uid_base + c_total
+    # d2d is persistent array state (ArrayState.d2d); same sub-streams as
+    # the engine would use internally.
+    d2d = sample_d2d_for(key, uids, (c_total, n), cfg.device)
+
+    fn = get_program_fn(cfg, cost)
+    g_parts, stat_parts = [], []
+    off = 0
+    for size in bucket_sizes(c_total, min_bucket, max_bucket):
+        take = min(size, c_total - off)
+        tb = targets[off: off + take]
+        db = d2d[off: off + take]
+        ub = uids[off: off + take]
+        pad = size - take
+        if pad:
+            # Filler columns: zero targets, fresh uids past the real range
+            # (their streams never alias a real column's), unit d2d.
+            tb = F.pad(tb, (0, 0, 0, pad))
+            db = F.pad(db, (0, 0, 0, pad), value=1.0)
+            ub = torch.cat([ub, pad_uid_base + torch.arange(
+                pad, dtype=torch.int64, device=device)])
+        g_b, st_b = fn(key, tb, db, ub)
+        g_parts.append(g_b[:take])
+        stat_parts.append(st_b.map(lambda x: x[:take]))
+        off += take
+
+    g_all = torch.cat(g_parts) if len(g_parts) > 1 else g_parts[0]
+    stats_all = (
+        WVStats(*(torch.cat(xs) for xs in zip(*stat_parts)))
+        if len(stat_parts) > 1
+        else stat_parts[0]
+    )
+    g_blocks, stats_blocks, d2d_blocks = [], [], []
+    off = 0
+    for c_i in sizes:
+        g_blocks.append(g_all[off: off + c_i])
+        stats_blocks.append(stats_all.map(lambda x: x[off: off + c_i]))
+        d2d_blocks.append(d2d[off: off + c_i])
+        off += c_i
+    return g_blocks, stats_blocks, d2d_blocks

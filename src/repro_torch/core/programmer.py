@@ -1,0 +1,395 @@
+"""Model-level RRAM deployment: quantize -> slice -> program -> read back.
+
+`deploy_arrays` takes a nested dict of model parameters, pushes every
+eligible weight leaf through the quantize -> bit-slice -> pack-to-columns
+-> write-and-verify pipeline, and returns a `DeployedModel` that keeps
+per-leaf `ArrayState` (programmed conductances `g`, integer `targets`,
+static `d2d` efficiencies, quant `scale`, pack `layout`) plus a
+`DeployReport` of aggregate WV statistics (latency / energy /
+iterations).  `materialize()` rebuilds dense params from the live `g`.
+
+By default the whole model goes through the bucketed pipeline
+(`core.pipeline`, DESIGN.md Sec. 10): all leaves' packed columns are
+concatenated into a few power-of-two column buckets, and the report is
+reduced on the device and fetched with a single host sync.
+`batched=False` keeps the per-leaf baseline path; per-column RNG
+sub-streams make the two bit-identical.
+
+Deployment policy (the reference's, kept as is):
+* leaves with ndim >= 2 go to RRAM (flattened to (K, M) on the last
+  axis) — this includes the stacked per-layer norm scales (L, d);
+* 1D leaves stay digital;
+* embedding tables are excluded by default (`deploy_embeddings=False`).
+
+Leaves are visited in the reference's pytree order — dict keys sorted,
+recursively — and named in its `keystr` form (``['layers']['wq']``), so
+every column gets the uid, and hence the noise stream, it gets there.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.quant import (
+    QuantConfig,
+    dequantize_weight,
+    pack_columns,
+    quantize_weight,
+    unpack_columns,
+)
+from repro_torch.quant.pack import PackedLayout
+
+from . import pipeline
+from .cost import CircuitCost
+from .types import WVConfig
+from .wv import WVStats
+
+__all__ = [
+    "ArrayState",
+    "DeployReport",
+    "DeployedModel",
+    "deploy_arrays",
+    "deploy_params",
+    "deploy_matrix",
+    "flatten_with_names",
+]
+
+
+@dataclasses.dataclass
+class DeployReport:
+    """Aggregate WV statistics for one deployment."""
+
+    num_columns: int = 0
+    num_cells: int = 0
+    mean_iterations: float = 0.0
+    total_latency_ns: float = 0.0     # sum over arrays (columns in parallel)
+    critical_latency_ns: float = 0.0  # max over columns = array wall-time
+    total_energy_pj: float = 0.0
+    rms_cell_error_lsb: float = 0.0
+    total_reads: float = 0.0          # verify ADC conversions/comparisons
+    total_write_pulses: float = 0.0
+    total_gave_up_cells: float = 0.0  # cells declared unprogrammable
+    total_retry_pulses: float = 0.0   # pulses burned on gave-up cells
+    leaves: dict[str, dict[str, float]] = dataclasses.field(default_factory=dict)
+
+    @classmethod
+    def collect(cls, leaf_stats: "dict[str, WVStats]", n_cells: int) -> "DeployReport":
+        """Device-side report reduction with exactly ONE host sync.
+
+        All reductions (per-leaf and aggregate) run on the device over the
+        `WVStats` tensors; one `pipeline.host_fetch` moves the scalars.
+        """
+        if not leaf_stats:
+            return cls()
+        stats = list(leaf_stats.values())
+        cat = lambda f: torch.cat([getattr(s, f) for s in stats])  # noqa: E731
+        rms2 = torch.cat([s.rms_error_lsb ** 2 for s in stats])
+        lat = cat("latency_ns")
+        agg = dict(
+            mean_iterations=torch.mean(cat("iterations")),
+            total_latency_ns=torch.sum(lat),
+            critical_latency_ns=torch.amax(lat),
+            total_energy_pj=torch.sum(cat("energy_pj")),
+            rms_cell_error_lsb=torch.sqrt(torch.mean(rms2)),
+            total_reads=torch.sum(cat("reads")),
+            total_write_pulses=torch.sum(cat("write_pulses")),
+            total_gave_up_cells=torch.sum(cat("gave_up")),
+            total_retry_pulses=torch.sum(cat("retry_pulses")),
+        )
+        per = {
+            name: dict(
+                mean_iterations=torch.mean(s.iterations),
+                critical_latency_ns=torch.amax(s.latency_ns),
+                energy_pj=torch.sum(s.energy_pj),
+                rms_cell_error_lsb=torch.sqrt(torch.mean(s.rms_error_lsb ** 2)),
+                gave_up_cells=torch.sum(s.gave_up),
+            )
+            for name, s in leaf_stats.items()
+        }
+        agg_h, per_h = pipeline.host_fetch((agg, per))
+        report = cls(
+            num_columns=sum(int(s.iterations.shape[0]) for s in stats),
+            num_cells=sum(int(s.iterations.shape[0]) * n_cells for s in stats),
+            **{k: float(v) for k, v in agg_h.items()},
+        )
+        report.leaves = {
+            name: dict(
+                columns=int(leaf_stats[name].iterations.shape[0]),
+                **{k: float(v) for k, v in d.items()},
+            )
+            for name, d in per_h.items()
+        }
+        return report
+
+    def merge(self, name: str, stats: WVStats, n_cells: int) -> None:
+        """Fold one leaf's stats in (per-leaf path: host syncs per leaf)."""
+        c = int(stats.iterations.shape[0])
+        lat = float(torch.sum(stats.latency_ns))
+        crit = float(torch.amax(stats.latency_ns))
+        en = float(torch.sum(stats.energy_pj))
+        it = float(torch.mean(stats.iterations))
+        rms = float(torch.sqrt(torch.mean(stats.rms_error_lsb ** 2)))
+        self.total_reads += float(torch.sum(stats.reads))
+        self.total_write_pulses += float(torch.sum(stats.write_pulses))
+        self.total_gave_up_cells += float(torch.sum(stats.gave_up))
+        self.total_retry_pulses += float(torch.sum(stats.retry_pulses))
+        self.leaves[name] = dict(
+            columns=c, mean_iterations=it, critical_latency_ns=crit,
+            energy_pj=en, rms_cell_error_lsb=rms,
+        )
+        tot_cells = self.num_cells + c * n_cells
+        w_old = self.num_cells / max(tot_cells, 1)
+        self.rms_cell_error_lsb = float(
+            (self.rms_cell_error_lsb**2 * w_old + rms**2 * (1 - w_old)) ** 0.5
+        )
+        self.mean_iterations = (
+            self.mean_iterations * self.num_columns + it * c
+        ) / max(self.num_columns + c, 1)
+        self.num_columns += c
+        self.num_cells = tot_cells
+        self.total_latency_ns += lat
+        self.critical_latency_ns = max(self.critical_latency_ns, crit)
+        self.total_energy_pj += en
+
+
+@dataclasses.dataclass
+class ArrayState:
+    """Persistent programmed state of one weight leaf on RRAM.
+
+    `g` is the live analog conductance of every cell (LSB units);
+    `targets` are the intended integer levels, `d2d` the static per-cell
+    step efficiency, `scale`/`layout`/`shape`/`dtype` invert the
+    quantize/pack transform.  No field is written in place.
+    """
+
+    g: torch.Tensor              # (C, N) programmed analog levels, LSB
+    targets: torch.Tensor        # (C, N) integer target levels, LSB
+    d2d: torch.Tensor            # (C, N) static per-cell step efficiency
+    scale: torch.Tensor          # per-channel quantization scale
+    layout: PackedLayout
+    shape: tuple[int, ...]       # original leaf shape
+    dtype: torch.dtype
+
+    def materialize(self, dtype: torch.dtype | None = None) -> torch.Tensor:
+        """Programmed conductances -> effective dense weight leaf.
+
+        `dtype` overrides the stored leaf dtype.
+        """
+        q = unpack_columns(self.g, self.layout)
+        w = dequantize_weight(q, self.scale).reshape(self.shape)
+        return w.to(self.dtype if dtype is None else dtype)
+
+
+def flatten_with_names(params: Any, prefix: str = "") -> list[tuple[str, Any]]:
+    """Leaves of a nested dict/list/tuple in the reference's pytree order.
+
+    Dict keys are visited sorted; names are the reference's `keystr`
+    form, e.g. ``['layers']['wq']`` or ``[0]``.
+    """
+    if isinstance(params, dict):
+        out = []
+        for k in sorted(params):
+            out += flatten_with_names(params[k], f"{prefix}[{k!r}]")
+        return out
+    if isinstance(params, (list, tuple)):
+        out = []
+        for i, v in enumerate(params):
+            out += flatten_with_names(v, f"{prefix}[{i}]")
+        return out
+    return [(prefix, params)]
+
+
+def _names_tree(params: Any, prefix: str = "") -> Any:
+    """`params`' structure with each leaf replaced by its name."""
+    if isinstance(params, dict):
+        return {k: _names_tree(v, f"{prefix}[{k!r}]") for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return type(params)(_names_tree(v, f"{prefix}[{i}]")
+                            for i, v in enumerate(params))
+    return prefix
+
+
+def _fill(names: Any, values: dict[str, Any]) -> Any:
+    if isinstance(names, dict):
+        return {k: _fill(v, values) for k, v in names.items()}
+    if isinstance(names, (list, tuple)):
+        return type(names)(_fill(v, values) for v in names)
+    return values[names]
+
+
+@dataclasses.dataclass
+class DeployedModel:
+    """A parameter tree whose matmul leaves live on simulated RRAM.
+
+    Digital leaves (norms, biases, embeddings) are kept verbatim and
+    merged back at materialization.
+    """
+
+    names: Any                   # the input tree's structure, leaves named
+    digital: dict[str, Any]      # leaf name -> digital leaf, verbatim
+    arrays: dict[str, ArrayState]
+    wv_cfg: WVConfig
+    cost: CircuitCost
+
+    def materialize(self) -> Any:
+        """Rebuild the full dense parameter tree from current `g`."""
+        values = dict(self.digital)
+        for name, state in self.arrays.items():
+            values[name] = state.materialize()
+        return _fill(self.names, values)
+
+
+@dataclasses.dataclass
+class _LeafPlan:
+    """One eligible leaf, quantized and packed, awaiting programming."""
+
+    name: str
+    leaf: torch.Tensor
+    cols: torch.Tensor           # (C, N) packed target levels
+    layout: PackedLayout
+    scale: torch.Tensor
+    uid_base: int                # first global column uid of this leaf
+
+    def state(self, g: torch.Tensor, d2d: torch.Tensor) -> ArrayState:
+        return ArrayState(
+            g=g, targets=self.cols, d2d=d2d, scale=self.scale,
+            layout=self.layout, shape=tuple(self.leaf.shape),
+            dtype=self.leaf.dtype,
+        )
+
+
+def _plan_leaf(name, w, wv_cfg, q_cfg, uid_base) -> _LeafPlan:
+    w2 = w.reshape((-1, w.shape[-1]))
+    q, scale = quantize_weight(w2, q_cfg)
+    cols, layout = pack_columns(q, wv_cfg.n_cells, q_cfg.cell_bits, q_cfg.slices)
+    return _LeafPlan(name, w, cols, layout, scale, uid_base)
+
+
+def _program_plan(key, plan: _LeafPlan, wv_cfg: WVConfig, cost: CircuitCost):
+    """Program one planned leaf on its own (the per-leaf baseline path).
+
+    Columns draw from ``fold_in(key, uid)`` with d2d from the same split
+    the engine uses, so the result is bit-identical to programming the
+    same uids inside a bucketed multi-leaf dispatch.
+    """
+    cols = plan.cols
+    col_ids = plan.uid_base + torch.arange(
+        cols.shape[0], dtype=torch.int64, device=cols.device)
+    d2d = pipeline.sample_d2d_for(key, col_ids, tuple(cols.shape), wv_cfg.device)
+    fn = pipeline.get_program_fn(wv_cfg, cost)
+    g, stats = fn(key, cols, d2d, col_ids)
+    return plan.state(g, d2d), stats
+
+
+def _default_qcfg(wv_cfg: WVConfig) -> QuantConfig:
+    return QuantConfig(weight_bits=wv_cfg.weight_bits, cell_bits=wv_cfg.device.bc)
+
+
+def deploy_matrix(
+    key: torch.Tensor,
+    w: torch.Tensor,
+    wv_cfg: WVConfig,
+    q_cfg: QuantConfig | None = None,
+    cost: CircuitCost | None = None,
+    *,
+    device="cuda",
+) -> tuple[torch.Tensor, WVStats]:
+    """Program one weight matrix onto RRAM; returns (w_programmed, stats).
+
+    The read-back is float32 regardless of the input dtype.
+    """
+    key, w = key.to(device), w.to(device)
+    plan = _plan_leaf("", w, wv_cfg, q_cfg or _default_qcfg(wv_cfg), 0)
+    state, stats = _program_plan(key, plan, wv_cfg, cost or CircuitCost())
+    return state.materialize(dtype=torch.float32), stats
+
+
+def _eligible(name: str, leaf, deploy_embeddings: bool, predicate) -> bool:
+    ok = isinstance(leaf, torch.Tensor) and leaf.ndim >= 2
+    if ok and not deploy_embeddings and "embed" in name.lower():
+        ok = False
+    if ok and predicate is not None:
+        ok = predicate(name, leaf)
+    return ok
+
+
+def deploy_arrays(
+    key: torch.Tensor,
+    params: Any,
+    wv_cfg: WVConfig,
+    q_cfg: QuantConfig | None = None,
+    cost: CircuitCost | None = None,
+    *,
+    deploy_embeddings: bool = False,
+    predicate: Callable[[str, torch.Tensor], bool] | None = None,
+    batched: bool = True,
+    min_bucket: int = pipeline.DEFAULT_MIN_BUCKET,
+    max_bucket: int = pipeline.DEFAULT_MAX_BUCKET,
+    device="cuda",
+) -> tuple[DeployedModel, DeployReport]:
+    """Program every eligible weight leaf, keeping persistent array state.
+
+    Returns (DeployedModel, DeployReport).  `batched=True` (default)
+    routes ALL leaves' packed columns through the bucketed pipeline with
+    one host sync for the report; `batched=False` programs leaf by leaf.
+    Both paths draw per-column sub-streams, so they are bit-identical.
+    Leaves are moved to `device` first.
+    """
+    q_cfg = q_cfg or _default_qcfg(wv_cfg)
+    cost = cost or CircuitCost()
+    key = key.to(device)
+    digital: dict[str, Any] = {}
+    plans: list[_LeafPlan] = []
+    uid = 0
+    for name, leaf in flatten_with_names(params):
+        if not _eligible(name, leaf, deploy_embeddings, predicate):
+            digital[name] = leaf
+            continue
+        plan = _plan_leaf(name, leaf.to(device), wv_cfg, q_cfg, uid)
+        uid += int(plan.cols.shape[0])
+        plans.append(plan)
+
+    arrays: dict[str, ArrayState] = {}
+    if batched:
+        g_blocks, stats_blocks, d2d_blocks = pipeline.program_packed_columns(
+            key, [p.cols for p in plans], wv_cfg, cost,
+            min_bucket=min_bucket, max_bucket=max_bucket,
+        )
+        for plan, g, d2d in zip(plans, g_blocks, d2d_blocks):
+            arrays[plan.name] = plan.state(g, d2d)
+        report = DeployReport.collect(
+            {p.name: s for p, s in zip(plans, stats_blocks)}, wv_cfg.n_cells
+        )
+    else:
+        report = DeployReport()
+        for plan in plans:
+            state, stats = _program_plan(key, plan, wv_cfg, cost)
+            report.merge(plan.name, stats, wv_cfg.n_cells)
+            arrays[plan.name] = state
+    model = DeployedModel(names=_names_tree(params), digital=digital,
+                          arrays=arrays, wv_cfg=wv_cfg, cost=cost)
+    return model, report
+
+
+def deploy_params(
+    key: torch.Tensor,
+    params: Any,
+    wv_cfg: WVConfig,
+    q_cfg: QuantConfig | None = None,
+    cost: CircuitCost | None = None,
+    *,
+    deploy_embeddings: bool = False,
+    predicate: Callable[[str, torch.Tensor], bool] | None = None,
+    batched: bool = True,
+    device="cuda",
+) -> tuple[Any, DeployReport]:
+    """Program every eligible leaf and collapse the arrays to dense weights."""
+    deployed, report = deploy_arrays(
+        key, params, wv_cfg, q_cfg, cost,
+        deploy_embeddings=deploy_embeddings, predicate=predicate,
+        batched=batched, device=device,
+    )
+    return deployed.materialize(), report

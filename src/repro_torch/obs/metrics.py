@@ -1,0 +1,95 @@
+"""Host-side counter registry and the counted device->host fetch.
+
+Named float counters (`pipeline.compiles`, `pipeline.host_syncs`, ...)
+that the pipeline's contracts are asserted on.  `fetch(tree, counter=...)`
+is the counted transfer chokepoint: one call = one device->host copy =
+one bump of its counter.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+__all__ = ["MetricRegistry", "registry", "fetch", "inc", "value", "reset"]
+
+
+class MetricRegistry:
+    """Host-side named counters."""
+
+    def __init__(self):
+        self._counts: dict[str, float] = {}
+
+    def inc(self, name: str, delta: float = 1.0) -> None:
+        self._counts[name] = self._counts.get(name, 0.0) + float(delta)
+
+    def value(self, name: str) -> float:
+        return self._counts.get(name, 0.0)
+
+    def reset(self, prefix: str | None = None) -> None:
+        """Zero all counters, or only those under `prefix`."""
+        if prefix is None:
+            self._counts = {}
+        else:
+            for k in [k for k in self._counts if k.startswith(prefix)]:
+                del self._counts[k]
+
+
+registry = MetricRegistry()
+
+
+def _leaves(tree: Any, out: list) -> None:
+    if isinstance(tree, torch.Tensor):
+        out.append(tree)
+    elif isinstance(tree, dict):
+        for k in sorted(tree):
+            _leaves(tree[k], out)
+    elif isinstance(tree, (list, tuple)):
+        for x in tree:
+            _leaves(x, out)
+
+
+def _rebuild(tree: Any, it) -> Any:
+    if isinstance(tree, torch.Tensor):
+        return next(it)
+    if isinstance(tree, dict):
+        vals = {k: _rebuild(tree[k], it) for k in sorted(tree)}
+        return {k: vals[k] for k in tree}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_rebuild(x, it) for x in tree)
+    return tree
+
+
+def fetch(tree: Any, counter: str | None = None) -> Any:
+    """Copy every tensor of a nested dict/list/tuple to numpy in ONE transfer.
+
+    The leaves are flattened into one float32 buffer on their device and
+    copied with a single `.cpu()`; the result has the tree's structure
+    with numpy arrays in place of tensors.
+    """
+    if counter is not None:
+        registry.inc(counter)
+    leaves: list[torch.Tensor] = []
+    _leaves(tree, leaves)
+    if not leaves:
+        return tree
+    flat = torch.cat([t.reshape(-1).to(torch.float32) for t in leaves])
+    host = flat.cpu().numpy()
+    parts, off = [], 0
+    for t in leaves:
+        parts.append(host[off: off + t.numel()].reshape(tuple(t.shape)))
+        off += t.numel()
+    return _rebuild(tree, iter(parts))
+
+
+def inc(name: str, delta: float = 1.0) -> None:
+    registry.inc(name, delta)
+
+
+def value(name: str) -> float:
+    return registry.value(name)
+
+
+def reset(prefix: str | None = None) -> None:
+    registry.reset(prefix)

@@ -1,0 +1,25 @@
+# The analog readout subsystem of the port: ONE model of the read path
+# (basis x converter x averaging x impairments) for WV verify.
+from .config import (  # noqa: F401
+    Converter,
+    ReadoutBasis,
+    ReadoutConfig,
+    for_wv_method,
+)
+from .converter import (  # noqa: F401
+    code_width_lsb,
+    compare_read,
+    full_scale_lsb,
+    sar_quantize,
+    sar_read,
+)
+from .noise import sample_read_fields  # noqa: F401
+from .readout import (  # noqa: F401
+    ReadResult,
+    decode_magnitude,
+    decode_ternary,
+    encode,
+    read_columns,
+    voted_signs,
+)
+from .cost import sweep_cost  # noqa: F401

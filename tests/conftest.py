@@ -17,3 +17,11 @@ def _clear_jax_caches_per_module():
     single-process footprint bounded."""
     yield
     jax.clear_caches()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "requires_cuda: needs an NVIDIA GPU with the CUDA toolkit "
+        "(the port's hand-written kernels); skipped where there is none",
+    )

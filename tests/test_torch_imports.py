@@ -1,0 +1,40 @@
+"""The port stands alone: no file of `src/repro_torch/` or `chip_smoke.py`
+imports JAX or the JAX reference package, and every module of the port
+imports here, where there is no CUDA toolkit and no card."""
+
+import ast
+import importlib
+import pathlib
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported(path: pathlib.Path) -> set[str]:
+    tree = ast.parse(path.read_text(), filename=str(path))
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            names.add(node.module)
+    return names
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_import(path):
+    bad = sorted(n for n in _imported(path) if n.split(".")[0] in FORBIDDEN)
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+@pytest.mark.parametrize(
+    "path", [p for p in FILES if p.is_relative_to(PORT)],
+    ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_module_imports_without_cuda(path):
+    rel = path.relative_to(PORT.parent).with_suffix("")
+    parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+    importlib.import_module(".".join(parts))
