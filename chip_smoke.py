@@ -25,7 +25,23 @@ CUDA toolkit.  Phases, each of which fails the run:
    one host sync, and a materialized leaf must be finite with the right
    shape and dtype;
 6. breakdown: the parts of one HARP bucket-iteration (keys, read noise,
-   write noise, verify, kernels) timed on their own.
+   write noise, verify, kernels) timed on their own;
+7. acim_vmm: at the serving path's shapes (layer 0 of the deployed w_gate
+   leaf: 8 tiles of 128 rows, 2 slices, 3072 outputs; decode B = 40 and
+   prefill B = 1280 DAC rows, and the one-tile form at B = 40) the kernel
+   is held against its plain version with the ADC off (rtol 1e-4, atol
+   1e-2) and on (every other element a sum of whole code flips, under
+   1%), and timed beside its bound, its plain version and one batched
+   `torch.matmul` of the pre-ADC products (which omits the epilogue);
+8. serving: phase 5's deployment is served through `CIMExecutor` and
+   `ServeEngine` — first with ideal converters in float32 against the
+   digital forward on the same arrays (logits, and greedy tokens over 8
+   decode steps), then with `examples/serve_lm.py`'s defaults (batch 4,
+   prompt 32, 32 new tokens, DAC 6 / ADC 10 bits, read noise 0.2 LSB) in
+   bf16: exactly 28 `acim_vmm_tiled` launches (7 analog leaves x 4
+   layers) per prefill and per decode step, tokens in the vocabulary,
+   logits finite; then the parts of one decode step (noise draws, DAC
+   streams, the kernel, attention, the rest) timed on their own.
 
 The line before the last is a JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -287,7 +303,7 @@ def phase_deploy(layers: int) -> dict:
           f"correlation with the written weights {corr:.5f}")
     if not corr > 0.95:
         raise AssertionError(f"{name}: programmed weights correlate {corr} with the written")
-    return dict(wall_s=wall, launches=launches, report=report)
+    return dict(wall_s=wall, launches=launches, report=report, model=model)
 
 
 def phase_breakdown() -> None:
@@ -352,6 +368,318 @@ def phase_breakdown() -> None:
         print(f"  {name:55s} {dev_ms:10.4f} {stream_ms:10.4f}")
 
 
+def _check_vmm(got, want, *, w, n_tiles, s, bc, adc: bool, what: str) -> tuple[float, int]:
+    """The acim_vmm tolerance (tests/acim_flips.py): rtol 1e-4, atol 1e-2;
+    with the ADC on, an element outside it must differ by a sum of whole
+    code flips, at most one per (tile, slice), each w * 2^(bc*l), and such
+    elements stay under 1%.  Returns (max |got - want|, flipped elements)."""
+    import numpy as np
+
+    g = got.double().cpu().numpy()
+    t = want.double().cpu().numpy()
+    err = float(np.max(np.abs(g - t))) if g.size else 0.0
+    off = ~np.isclose(g, t, rtol=1e-4, atol=1e-2)
+    if not off.any():
+        return err, 0
+    if not adc:
+        raise AssertionError(f"acim_vmm {what}: {off.sum()} values outside "
+                             f"rtol 1e-4 / atol 1e-2, by up to {err}")
+    if not off.mean() < 0.01:
+        raise AssertionError(f"acim_vmm {what}: {off.sum()} of {off.size} values flipped")
+    sums = {0}
+    for _ in range(n_tiles):
+        for l in range(s):
+            sums = {a + d * (1 << (bc * l)) for a in sums for d in (-1, 0, 1)}
+    sums = np.array(sorted(sums - {0}), np.float64)
+    diff = (g - t)[off] / w
+    near = np.min(np.abs(diff[:, None] - sums[None, :]), axis=1)
+    if not np.all(near <= (1e-2 + 1e-4 * np.abs(t[off])) / w):
+        raise AssertionError(f"acim_vmm {what}: differences of {diff[near > 1e-3]} "
+                             "code widths are not sums of code flips")
+    return err, int(off.sum())
+
+
+def phase_acim_vmm(model, gen) -> dict:
+    """The acim_vmm kernel at the serving path's shapes.
+
+    Operands: layer 0 of qwen3-0.6b's w_gate leaf as deployed in phase 5
+    (T = 8 tiles of R = 128 rows, S = 2 slices, M = 3072, bc = 3), DAC
+    planes of random activations (P = 10 planes per token) and read noise
+    0.2 * N(0, 1) from the seeded generator.  Decode (4 tokens, B = 40),
+    prefill (128 tokens, B = 1280), and the one-tile form at B = 40, each
+    held against the plain version with the ADC off and on (10 bits), and
+    timed at the serving configuration (ADC on, noise on).
+    """
+    import torch
+
+    from repro_torch.cim import CIMConfig, build_weight
+    from repro_torch.cim.mvm import _dac_stream
+    from repro_torch.core import rng
+    from repro_torch.kernels.acim_vmm import ops, ref
+
+    cfg = CIMConfig(dac_bits=6, adc_bits=10, sigma_read_lsb=0.2)
+    w = build_weight(model.arrays["['layers']['w_gate']"], cfg,
+                     rng.PRNGKey(0, device="cuda")).layer(0)
+    gp, gn = w.g_pos, w.g_neg
+    n_tiles, s, r, m = gp.shape
+    fs = 2.0 * r * (w.levels - 1)
+    width = fs / (1 << cfg.adc_bits)
+    d = gp - gn
+    out = {}
+    for case, tokens, tiles in (("decode", 4, n_tiles), ("prefill", 128, n_tiles),
+                                ("one tile", 4, 1)):
+        xf = torch.randn(tokens, w.rows_in, device="cuda", generator=gen)
+        planes, _ = _dac_stream(xf, cfg)
+        x = planes.reshape(-1, w.rows_in)[:, : tiles * r].contiguous()
+        b = x.shape[0]
+        nz = 0.2 * torch.randn(tiles, s, b, m, device="cuda", generator=gen)
+        if tiles == 1:
+            args = (x, gp[0], gn[0])
+            kern = lambda a, n: ops.acim_vmm(*args, bc=w.bc, adc_bits=a,  # noqa: E731
+                                             full_scale=fs, noise=n)
+            plain = lambda a, n: ref.acim_vmm(*args, w.bc, a, fs,  # noqa: E731
+                                              None if n is None else n[0])
+            kern_nz = nz[0]
+        else:
+            args = (x, gp, gn)
+            kern = lambda a, n: ops.acim_vmm_tiled(*args, bc=w.bc, adc_bits=a,  # noqa: E731
+                                                   full_scale=fs, noise=n)
+            plain = lambda a, n: ref.acim_vmm_tiled(*args, w.bc, a, fs, n)  # noqa: E731
+            kern_nz = nz
+        err_off, _ = _check_vmm(kern(None, kern_nz), plain(None, nz), w=width,
+                                n_tiles=tiles, s=s, bc=w.bc, adc=False,
+                                what=f"{case} ADC off")
+        err_on, flips = _check_vmm(kern(cfg.adc_bits, kern_nz), plain(cfg.adc_bits, nz),
+                                   w=width, n_tiles=tiles, s=s, bc=w.bc, adc=True,
+                                   what=f"{case} ADC on")
+        xt = x.reshape(b, tiles, r).transpose(0, 1)[:, None].contiguous()  # (T, 1, B, R)
+        dt = d[:tiles]                                            # (T, S, R, M)
+        bound, by = _bound(
+            4.0 * (x.numel() + 2 * dt.numel() + nz.numel() + b * m),
+            2.0 * b * tiles * r * m * s)
+        ms, ms_s = _time_ms(lambda: kern(cfg.adc_bits, kern_nz))
+        plain_ms, plain_s = _time_ms(lambda: plain(cfg.adc_bits, nz))
+        lib_ms, lib_s = _time_ms(lambda: torch.matmul(xt, dt))
+        out[case] = dict(
+            b=b, tiles=tiles, ms=ms, stream_ms=ms_s, plain_ms=plain_ms,
+            plain_stream_ms=plain_s, library_ms=lib_ms, library_stream_ms=lib_s,
+            bound_ms=bound, bound_by=by, max_abs_err=err_off,
+            max_abs_err_adc=err_on, flips=flips, n=b * m)
+    print(f"acim_vmm at w_gate layer 0 (R={r}, S={s}, M={m}, bc={w.bc}, FS={fs}, "
+          f"ADC {cfg.adc_bits} bits, code width {width}); device ms (stream ms);")
+    print("  library = one batched torch.matmul x @ (g_pos - g_neg) over (T, S), "
+          "TF32 off, omitting the difference, noise, ADC and recombination")
+    for case, rr in out.items():
+        print(f"  {case:8s} B={rr['b']:5d} T={rr['tiles']}: ms={rr['ms']:.4f} "
+              f"({rr['stream_ms']:.4f}) plain_ms={rr['plain_ms']:.4f} "
+              f"({rr['plain_stream_ms']:.4f}) library_ms={rr['library_ms']:.4f} "
+              f"({rr['library_stream_ms']:.4f}) bound_ms={rr['bound_ms']:.4f} "
+              f"({rr['bound_by']}) max_abs_err ADC off {rr['max_abs_err']:.3g}, "
+              f"ADC on {rr['max_abs_err_adc']:.3g} with {rr['flips']} of {rr['n']} "
+              "codes flipped")
+    return out
+
+
+def phase_serve(model, layers: int, gen) -> dict:
+    """Analog serving of the phase-5 deployment through `CIMExecutor` and
+    `ServeEngine` at full width, `layers` deep.
+
+    Ideal check: `CIMConfig(dac_bits=None, adc_bits=None,
+    sigma_read_lsb=0)` with the model in float32 against the digital
+    forward on the float32 read-back of the same arrays: prefill logits
+    within atol 2e-3 + rtol 1e-3 (float32 sums over up to 3072 rows in
+    another association), greedy tokens equal over 8 decode steps.
+    Noisy serve: `examples/serve_lm.py`'s defaults (batch 4, prompt 32,
+    32 new tokens, DAC 6 bits, ADC 10 bits, read noise 0.2 LSB) in bf16.
+    """
+    import torch
+
+    from repro_torch.cim import CIMConfig, CIMExecutor, planes_per_token
+    from repro_torch.configs.qwen3_0_6b import CONFIG
+    from repro_torch.core import rng
+    from repro_torch.core.programmer import fill_names
+    from repro_torch.kernels.acim_vmm import ops as vmm_ops
+    from repro_torch.models import forward
+    from repro_torch.serving import ServeEngine
+
+    cfg = CONFIG.replace(n_layers=layers)
+    b, s, new = 4, 32, 32
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), device="cuda", generator=gen,
+                           dtype=torch.int32)
+
+    # Ideal converters, float32: analog == digital on the same arrays.
+    cfg32 = cfg.replace(dtype=torch.float32)
+    digital = fill_names(model.names, {
+        **model.digital,
+        **{n: st.materialize(dtype=torch.float32) for n, st in model.arrays.items()}})
+    ideal = CIMExecutor(model, CIMConfig(dac_bits=None, adc_bits=None,
+                                         sigma_read_lsb=0.0),
+                        rng.PRNGKey(SEED + 2, device="cuda"))
+    la, _, _ = forward(ideal.params(), {"tokens": tokens}, cfg32)
+    ld, _, _ = forward(digital, {"tokens": tokens}, cfg32)
+    err = float((la - ld).abs().max())
+    scale = float(ld.abs().max())
+    print(f"serve ideal check (f32, {ideal.summary()['analog_leaves']} analog leaves): "
+          f"prefill logits max |analog - digital| = {err:.3g} (logits up to {scale:.3g})")
+    if not torch.allclose(la, ld, rtol=1e-3, atol=2e-3):
+        raise AssertionError(f"ideal analog logits differ from digital by {err}")
+    ta = ServeEngine(cfg32, executor=ideal).generate(tokens, max_new=9)
+    td = ServeEngine(cfg32, digital).generate(tokens, max_new=9)
+    if not torch.equal(ta, td):
+        raise AssertionError(f"ideal analog greedy tokens {ta.tolist()} != digital "
+                             f"{td.tolist()}")
+    print(f"  greedy tokens over 8 decode steps equal: {ta[0].tolist()} ...")
+    del digital, ideal, la, ld
+
+    # Noisy serving, the serve_lm defaults, bf16: the main path.
+    cim = CIMConfig(dac_bits=6, adc_bits=10, sigma_read_lsb=0.2)
+    ex = CIMExecutor(model, cim, rng.PRNGKey(SEED + 3, device="cuda"))
+    engine = ServeEngine(cfg, executor=ex)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    vmm_ops.launches = 0
+    vmm_ops.launches_single = 0
+    t0 = time.perf_counter()
+    out = engine.generate(tokens, max_new=new)
+    torch.cuda.synchronize()
+    gen_wall = time.perf_counter() - t0
+    launches = {"acim_vmm_tiled": vmm_ops.launches, "acim_vmm": vmm_ops.launches_single}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    # 7 stacked projections on tiles (the tied head stays digital).
+    if ex.summary()["analog_leaves"] != 7:
+        raise AssertionError(f"{ex.summary()['analog_leaves']} analog leaves, expected 7")
+    leaves = 7 * layers
+    if launches["acim_vmm_tiled"] != leaves * new:
+        raise AssertionError(f"generate launched acim_vmm_tiled {launches} times; "
+                             f"{leaves} analog leaf-layers x {new} steps = {leaves * new}")
+    if out.shape != (b, new) or out.dtype != torch.int32:
+        raise AssertionError(f"generate returned {out.dtype}{tuple(out.shape)}")
+    if not bool(((out >= 0) & (out < cfg.vocab_size)).all()):
+        raise AssertionError("generated tokens outside the vocabulary")
+
+    # The same traffic again, a sync around each step, for step times.
+    per_step = []
+    before = vmm_ops.launches
+    t0 = time.perf_counter()
+    last, cache = engine._prefill(engine.access_params(b * s), {"tokens": tokens})
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    step_launches = [vmm_ops.launches - before]
+    finite = bool(torch.isfinite(last).all())
+    cur = torch.argmax(last, dim=-1).to(torch.int32)[:, None]
+    for _ in range(new - 1):
+        before = vmm_ops.launches
+        t0 = time.perf_counter()
+        tok, logits, cache = engine._decode(engine.access_params(b), cache,
+                                            {"tokens": cur})
+        torch.cuda.synchronize()
+        per_step.append((time.perf_counter() - t0) * 1e3)
+        step_launches.append(vmm_ops.launches - before)
+        finite &= bool(torch.isfinite(logits).all())
+        cur = tok[:, None]
+    if set(step_launches) != {leaves}:
+        raise AssertionError(f"acim_vmm launches per step {step_launches}, "
+                             f"expected {leaves} each")
+    if not finite:
+        raise AssertionError("non-finite logits in noisy serving")
+    step_ms = statistics.median(per_step)
+    lat_ns, en_pj = ex.token_cost()
+    print(f"serve qwen3-0.6b layers={layers} analog (DAC {cim.dac_bits}, ADC "
+          f"{cim.adc_bits} bits, read noise {cim.sigma_read_lsb} LSB, "
+          f"{planes_per_token(cim)} planes per token), batch {b}, prompt {s}, "
+          f"{new} new tokens, bf16")
+    print(f"  generate wall {gen_wall * 1e3:.1f} ms ({b * new / gen_wall:.2f} tokens/s "
+          f"incl. prefill); prefill {prefill_ms:.1f} ms; decode step median "
+          f"{step_ms:.2f} ms (min {min(per_step):.2f}, max {max(per_step):.2f}) = "
+          f"{b / step_ms * 1e3:.2f} tokens/s")
+    print(f"  acim_vmm_tiled launches {launches['acim_vmm_tiled']} in generate, "
+          f"{step_launches[0]} per prefill and {step_launches[1]} per decode step; "
+          f"acim_vmm (one tile) {launches['acim_vmm']}; peak device memory "
+          f"{peak_gib:.2f} GiB; logits finite")
+    print(f"  simulated arrays (cost model output, not card time): "
+          f"{lat_ns / 1e3:.4f} us and {en_pj / 1e6:.4f} uJ per token")
+    print(f"  first sequence: {out[0].tolist()}")
+    return dict(engine=engine, ex=ex, cfg=cfg, cim=cim, cache=cache, cur=cur,
+                launches=launches, prefill_ms=prefill_ms, step_ms=step_ms,
+                gen_wall_s=gen_wall, peak_gib=peak_gib)
+
+
+def phase_serve_breakdown(serve: dict, gen) -> None:
+    """Time the parts of one noisy decode step (batch 4) on their own:
+    the read-noise draws, the DAC streams and the acim_vmm kernel of all
+    analog leaf-layers, the attention of all layers, and the whole step
+    (rest = whole - parts).  Device and stream ms as `_time_ms` gives."""
+    import torch
+
+    from repro_torch.cim import planes_per_token
+    from repro_torch.cim.mvm import _dac_stream
+    from repro_torch.core import rng
+    from repro_torch.kernels.acim_vmm import ops as vmm_ops
+    from repro_torch.models.attention import decode_attention
+    from repro_torch.readout import noise as ro_noise
+
+    engine, cfg, cim = serve["engine"], serve["cfg"], serve["cim"]
+    cache, cur = serve["cache"], serve["cur"]
+    params = engine.params
+    b = cur.shape[0]
+    leaves = [params["layers"][n].layer(i) for i in range(cfg.n_layers)
+              for n in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")]
+    xs = [torch.randn(b, w.rows_in, device="cuda", generator=gen).to(cfg.dtype)
+          for w in leaves]
+
+    def noise_draws():
+        out = []
+        for w in leaves:
+            key = rng.fold_in(rng.fold_in(w.key, w.uid), w.layer_id)
+            out.append(ro_noise.sample_token_read_noise(
+                key, b, w.n_slices, w.n_outputs, cim.sigma_read_lsb,
+                tiles=w.n_tiles, planes=planes_per_token(cim)))
+        return out
+
+    def dac():
+        return [_dac_stream(x.to(torch.float32), cim) for x in xs]
+
+    noises = noise_draws()
+    xps = []
+    for w, (planes, _) in zip(leaves, dac()):
+        pad = w.n_tiles * w.tile_rows - w.rows_in
+        xps.append(torch.nn.functional.pad(planes, (0, pad)).reshape(
+            -1, w.n_tiles * w.tile_rows))
+
+    def kernels():
+        return [vmm_ops.acim_vmm_tiled(
+            xp, w.g_pos, w.g_neg, bc=w.bc, adc_bits=cim.adc_bits,
+            full_scale=2.0 * w.tile_rows * (w.levels - 1), noise=nz)
+            for w, xp, nz in zip(leaves, xps, noises)]
+
+    q = torch.randn(b, 1, cfg.n_heads, cfg.head_dim, device="cuda",
+                    generator=gen).to(cfg.dtype)
+    pos = cache["pos"]
+
+    def attention():
+        return [decode_attention(q, cache["k"][i], cache["v"][i], pos)
+                for i in range(cfg.n_layers)]
+
+    def step():
+        return engine._decode(params, cache, {"tokens": cur})
+
+    parts = {
+        f"read-noise draws ({len(leaves)} leaf-layers)": noise_draws,
+        f"_dac_stream ({len(leaves)})": dac,
+        f"acim_vmm kernel ({len(leaves)} launches)": kernels,
+        f"decode attention ({cfg.n_layers} layers)": attention,
+    }
+    times = {name: _time_ms(fn) for name, fn in parts.items()}
+    whole = _time_ms(step)
+    rest = (whole[0] - sum(t[0] for t in times.values()),
+            whole[1] - sum(t[1] for t in times.values()))
+    print(f"breakdown of one analog decode step (batch {b}, {cfg.n_layers} layers):")
+    print(f"  {'part':42s} {'device ms':>10s} {'stream ms':>10s} {'device share':>12s}")
+    for name, (dv, st) in {**times, "rest (whole - parts)": rest}.items():
+        print(f"  {name:42s} {dv:10.4f} {st:10.4f} {dv / whole[0]:12.1%}")
+    print(f"  {'whole decode step (no executor tick)':42s} {whole[0]:10.4f} {whole[1]:10.4f}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=4,
@@ -408,6 +736,12 @@ def main() -> int:
     dep = phase_deploy(args.layers)
     stamp("breakdown phase")
     phase_breakdown()
+    stamp("acim_vmm kernel phase")
+    vmm = phase_acim_vmm(dep["model"], gen)
+    stamp("serving phase")
+    serve = phase_serve(dep["model"], args.layers, gen)
+    stamp("serving breakdown phase")
+    phase_serve_breakdown(serve, gen)
     stamp("done")
 
     main_fwht, main_wv = k[("fwht", 32)], k[("wv_step", 32, True)]
@@ -425,6 +759,16 @@ def main() -> int:
              bound_ms=main_wv["bound_ms"], bound_by=main_wv["bound_by"],
              library_ms=None),
     ]}
+    for name, case, src_line in (("acim_vmm_tiled", "decode", 166),
+                                 ("acim_vmm", "one tile", 230)):
+        r = vmm[case]
+        line["kernels"].append(dict(
+            name=name, route="cuda", source="src/repro_torch/kernels/csrc/acim_vmm.cu",
+            replaces=f"src/repro/kernels/acim_vmm/acim_vmm.py:{src_line}",
+            launches=serve["launches"][name], max_abs_err=r["max_abs_err"],
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"],
+            shape=f"B={r['b']} T={r['tiles']}", adc_flips=r["flips"]))
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,7 +5,9 @@ params after ``jax.tree.map(np.asarray, params)``) and returns the
 port's tensors.  The reference's bf16 comes out of numpy as an
 ``ml_dtypes.bfloat16`` array, which `torch.from_numpy` refuses, so it
 crosses as its uint16 bit pattern.  `key_from_numpy` carries a raw
-``uint32[2]`` threefry key (or a batch of them).
+``uint32[2]`` threefry key (or a batch of them).  `deployed_from_numpy`
+carries a whole deployment (programmed conductances and all), so the two
+packages can serve the same arrays without deploying twice.
 """
 
 from __future__ import annotations
@@ -15,7 +17,11 @@ from typing import Any
 import numpy as np
 import torch
 
-__all__ = ["params_from_numpy", "key_from_numpy", "tensor_from_numpy"]
+__all__ = ["params_from_numpy", "key_from_numpy", "tensor_from_numpy",
+           "deployed_from_numpy"]
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
+           "float32": torch.float32, "float64": torch.float64}
 
 
 def tensor_from_numpy(a, device="cuda") -> torch.Tensor:
@@ -43,3 +49,52 @@ def key_from_numpy(key, device="cuda") -> torch.Tensor:
     if k.shape[-1] != 2 or k.dtype != np.uint32:
         raise ValueError(f"expected uint32[..., 2] key data, got {k.dtype}{k.shape}")
     return torch.from_numpy(k.astype(np.int64)).to(device)
+
+
+def deployed_from_numpy(tree: Any, arrays: dict[str, Any], wv_cfg=None,
+                        cost=None, device="cuda"):
+    """Carry the reference's `DeployedModel` across to the port.
+
+    Args:
+      tree: the deployed parameter tree with numpy leaves (e.g. the
+        reference's ``materialize()`` through ``np.asarray``); the leaves
+        that `arrays` names are ignored, every other leaf is a digital
+        leaf, carried verbatim.
+      arrays: leaf name (``['layers']['wq']``) -> mapping with the
+        `ArrayState` fields ``g``, ``targets``, ``d2d``, ``scale`` (numpy),
+        ``layout`` (mapping or object with ``k_in, m_out, n_cells,
+        slices, bc``), ``shape`` and ``dtype`` (numpy dtype or name).
+      wv_cfg, cost: the deployment's `WVConfig` / `CircuitCost`
+        (defaults if None).
+    """
+    from repro_torch.core.cost import CircuitCost
+    from repro_torch.core.programmer import (
+        ArrayState,
+        DeployedModel,
+        flatten_with_names,
+        names_tree,
+    )
+    from repro_torch.core.types import WVConfig
+    from repro_torch.quant.pack import PackedLayout
+
+    def field(obj, name):
+        return obj[name] if isinstance(obj, dict) else getattr(obj, name)
+
+    states = {}
+    for name, st in arrays.items():
+        lay = field(st, "layout")
+        layout = PackedLayout(*(int(field(lay, f)) for f in
+                                ("k_in", "m_out", "n_cells", "slices", "bc")))
+        states[name] = ArrayState(
+            g=tensor_from_numpy(field(st, "g"), device),
+            targets=tensor_from_numpy(field(st, "targets"), device),
+            d2d=tensor_from_numpy(field(st, "d2d"), device),
+            scale=tensor_from_numpy(field(st, "scale"), device),
+            layout=layout,
+            shape=tuple(int(d) for d in field(st, "shape")),
+            dtype=_DTYPES[np.dtype(field(st, "dtype")).name],
+        )
+    digital = {name: tensor_from_numpy(leaf, device)
+               for name, leaf in flatten_with_names(tree) if name not in states}
+    return DeployedModel(names=names_tree(tree), digital=digital, arrays=states,
+                         wv_cfg=wv_cfg or WVConfig(), cost=cost or CircuitCost())

@@ -18,12 +18,13 @@ import dataclasses
 
 import torch
 
-from .types import DeviceConfig, WVConfig, WVMethod
+from .types import ADCConfig, DeviceConfig, WVConfig, WVMethod
 
 __all__ = [
     "CircuitCost",
     "read_phase_cost",
     "write_phase_cost",
+    "inference_token_cost",
     "decode_cost",
 ]
 
@@ -85,6 +86,37 @@ def write_phase_cost(
     e_per_pulse_pj = (v * v) * g_us * cost.t_write_pulse_ns * 1e-3
     e = torch.sum(n_pulses * e_per_pulse_pj, dim=column_axis)
     return lat, e
+
+
+def inference_token_cost(
+    n_conversions: int,
+    n_row_drives: int,
+    planes: int,
+    adc: ADCConfig,
+    cost: CircuitCost,
+) -> tuple[float, float]:
+    """(latency_ns, energy_pj) of serving ONE token through the arrays.
+
+    Each of the `planes` bit-serial DAC phases drives every macro's rows
+    and full-SAR-converts every sensed signed column pair; slices and
+    tiles have their own converters, so a phase's latency is one
+    drive + read + convert, and phases are sequential.  One tail add of
+    the shift-and-add recombination sits on the critical path; every
+    conversion pays an accumulate.
+
+    Args:
+      n_conversions: ADC conversions per plane (sum over analog leaves
+        of layers * tiles * slices * outputs).
+      n_row_drives: DAC row drives per plane (layers * tiles * rows).
+      planes: bit-serial phases per token (`cim.planes_per_token`).
+    """
+    lat = planes * (cost.t_dac_ns + adc.t_read_pulse_ns + adc.t_sar_ns)
+    lat += cost.t_adder_ns
+    e_plane = (
+        n_row_drives * cost.e_dac_pj
+        + n_conversions * (adc.e_tia_pj + adc.e_sar_pj + cost.e_adder_hdpv_pj)
+    )
+    return float(lat), float(planes * e_plane)
 
 
 def decode_cost(cfg: WVConfig, cost: CircuitCost) -> tuple[float, float]:

@@ -55,6 +55,8 @@ __all__ = [
     "deploy_params",
     "deploy_matrix",
     "flatten_with_names",
+    "fill_names",
+    "names_tree",
 ]
 
 
@@ -202,21 +204,23 @@ def flatten_with_names(params: Any, prefix: str = "") -> list[tuple[str, Any]]:
     return [(prefix, params)]
 
 
-def _names_tree(params: Any, prefix: str = "") -> Any:
+def names_tree(params: Any, prefix: str = "") -> Any:
     """`params`' structure with each leaf replaced by its name."""
     if isinstance(params, dict):
-        return {k: _names_tree(v, f"{prefix}[{k!r}]") for k, v in params.items()}
+        return {k: names_tree(v, f"{prefix}[{k!r}]") for k, v in params.items()}
     if isinstance(params, (list, tuple)):
-        return type(params)(_names_tree(v, f"{prefix}[{i}]")
+        return type(params)(names_tree(v, f"{prefix}[{i}]")
                             for i, v in enumerate(params))
     return prefix
 
 
-def _fill(names: Any, values: dict[str, Any]) -> Any:
+def fill_names(names: Any, values: dict[str, Any]) -> Any:
+    """A tree of leaf names (`DeployedModel.names`) -> the same tree with
+    each name replaced by ``values[name]``."""
     if isinstance(names, dict):
-        return {k: _fill(v, values) for k, v in names.items()}
+        return {k: fill_names(v, values) for k, v in names.items()}
     if isinstance(names, (list, tuple)):
-        return type(names)(_fill(v, values) for v in names)
+        return type(names)(fill_names(v, values) for v in names)
     return values[names]
 
 
@@ -239,7 +243,11 @@ class DeployedModel:
         values = dict(self.digital)
         for name, state in self.arrays.items():
             values[name] = state.materialize()
-        return _fill(self.names, values)
+        return fill_names(self.names, values)
+
+    def update_array(self, name: str, g: torch.Tensor) -> None:
+        """Swap in new conductances for one leaf (its views re-tile)."""
+        self.arrays[name] = dataclasses.replace(self.arrays[name], g=g)
 
 
 @dataclasses.dataclass
@@ -369,7 +377,7 @@ def deploy_arrays(
             state, stats = _program_plan(key, plan, wv_cfg, cost)
             report.merge(plan.name, stats, wv_cfg.n_cells)
             arrays[plan.name] = state
-    model = DeployedModel(names=_names_tree(params), digital=digital,
+    model = DeployedModel(names=names_tree(params), digital=digital,
                           arrays=arrays, wv_cfg=wv_cfg, cost=cost)
     return model, report
 

@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 __all__ = ["PRNGKey", "batch_ndim", "fold_col_keys", "split", "fold_in",
-           "random_bits", "uniform", "normal", "erfinv_f32"]
+           "random_bits", "uniform", "normal", "erfinv_f32", "categorical"]
 
 _MASK = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -119,10 +119,22 @@ def _unit_floats(key: torch.Tensor, shape) -> torch.Tensor:
     return f - 1.0
 
 
-def uniform(key: torch.Tensor, shape) -> torch.Tensor:
-    """U[0, 1) float32 draw of `shape`; batch-transparent like `normal`."""
-    # minval 0, maxval 1: the reference's affine map is the identity.
-    return _unit_floats(key, shape)
+def uniform(key: torch.Tensor, shape, minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """U[minval, maxval) float32 draw of `shape`; batch-transparent like
+    `normal`.
+
+    The reference's affine map in float32: ``max(minval, f * (maxval -
+    minval) + minval)`` with the span rounded to float32 first.  Bitwise
+    the reference's for a unit span; otherwise within one rounding of
+    ``f * span`` (XLA contracts the multiply-add into an FMA).
+    """
+    f = _unit_floats(key, shape)
+    if minval == 0.0 and maxval == 1.0:
+        return f  # the affine map is the identity
+    lo = float(np.float32(minval))
+    span = float(np.float32(maxval) - np.float32(minval))
+    return torch.clamp_min(f * span + lo, lo)
 
 
 # XLA's float32 ErfInv (Giles, "Approximating the erfinv function").
@@ -163,3 +175,21 @@ def normal(key: torch.Tensor, shape) -> torch.Tensor:
     f = _unit_floats(key, shape)
     u = torch.clamp_min(f * _NORMAL_SPAN + _NORMAL_LO, _NORMAL_LO)
     return erfinv_f32(u) * _SQRT2
+
+
+_TINY = float(np.finfo(np.float32).tiny)
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """`jax.random.categorical(key, logits, axis)` for float32 logits.
+
+    The Gumbel-max trick with the reference's default ("low") Gumbel
+    sampler: ``argmax(logits - log(-log(u)))``, u drawn from one key as
+    ``uniform(key, logits.shape, minval=tiny, maxval=1)``.  Ties go to
+    the first index, as in `jnp.argmax`.
+    """
+    if logits.dtype != torch.float32:
+        raise TypeError(f"categorical takes float32 logits, got {logits.dtype}")
+    u = uniform(key, tuple(logits.shape), minval=_TINY, maxval=1.0)
+    gumbel = -torch.log(-torch.log(u))
+    return torch.argmax(gumbel + logits, dim=axis)

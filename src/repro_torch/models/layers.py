@@ -1,0 +1,71 @@
+"""Shared neural-net primitives (plain functions over tensors).
+
+The reference's mixed-precision policy: parameters are stored in
+cfg.dtype (bf16), matmuls accumulate in float32 and cast back to the
+activation dtype, norm statistics reduce in float32 and the normalizer
+is applied in the activation dtype.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.cim.mvm import cim_matmul, current_token_ids
+from repro_torch.cim.tile import CIMWeight
+from repro_torch.core.numerics import true_div
+
+__all__ = ["matmul", "rms_norm", "head_rms_norm", "swiglu", "rope_freqs",
+           "apply_rope"]
+
+
+def matmul(x: torch.Tensor, w) -> torch.Tensor:
+    """x @ w with float32 accumulation, cast back to x.dtype.
+
+    A `CIMWeight` leaf (analog serving, `repro_torch.cim`) goes through
+    the in-array forward instead: the programmed conductance tiles
+    compute the product, noise and ADC included, under the same
+    contract.  The ambient token-id stream (`cim.token_stream_ids`) keys
+    the per-row noise sub-streams.
+    """
+    if isinstance(w, CIMWeight):
+        return cim_matmul(x, w, token_ids=current_token_ids())
+    y = torch.matmul(x.to(torch.float32), w.to(torch.float32))
+    return y.to(x.dtype)
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMS norm: the square in x.dtype, its mean in float32, the
+    normalizer applied in x.dtype."""
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True, dtype=torch.float32)
+    inv = torch.rsqrt(var + eps).to(x.dtype)
+    return x * inv * (1.0 + scale).to(x.dtype)
+
+
+def head_rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    """Per-head RMS norm over head_dim (Qwen3 qk-norm)."""
+    return rms_norm(x, scale, eps)
+
+
+def swiglu(x, w_gate, w_up, w_down) -> torch.Tensor:
+    g = matmul(x, w_gate)
+    u = matmul(x, w_up)
+    return matmul(F.silu(g.to(torch.float32)).to(x.dtype) * u, w_down)
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = true_div(torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                 device=device), float(head_dim))
+    return 1.0 / torch.pow(theta, exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., S, H, hd); positions: (..., S) integer."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, device=x.device)               # (hd/2,)
+    angles = positions[..., :, None].to(torch.float32) * freqs   # (..., S, hd/2)
+    cos = torch.cos(angles)[..., :, None, :]
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)

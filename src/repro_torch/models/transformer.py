@@ -1,12 +1,16 @@
-"""Parameter tree of the dense attention decoder (init only).
+"""The dense attention decoder: parameter tree and full-sequence forward.
 
 `init_params` builds the reference's `models/transformer.py:init_params`
 tree for the dense attention block: the same key names, shapes and
 dtypes, so deployment flattens it into the same leaves and column uids.
 Values come from an explicit `torch.Generator` and are not the
 reference's; parity tests carry the reference's params across with
-`repro_torch.convert.params_from_numpy`.  The forward pass is not
-ported yet.
+`repro_torch.convert.params_from_numpy`.
+
+`forward` is the reference's homogeneous dense stack (GQA, qk-norm,
+RoPE), its `lax.scan` over layers a Python loop over `slice_layer`.
+Other blocks (MoE, rwkv6, hymba, cross-attention, multi-codebook heads,
+stub frontends) raise `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -16,9 +20,14 @@ from typing import Any
 
 import torch
 
-from .config import ModelConfig
+from repro_torch.cim.tile import CIMWeight
 
-__all__ = ["init_params"]
+from .attention import chunked_causal_attention
+from .config import ModelConfig
+from .layers import apply_rope, head_rms_norm, matmul, rms_norm, swiglu
+
+__all__ = ["init_params", "slice_layer", "embed_inputs", "output_logits",
+           "forward"]
 
 
 def _truncated_normal(gen, shape, std, dtype, device) -> torch.Tensor:
@@ -62,3 +71,103 @@ def init_params(seed: int, cfg: ModelConfig, device="cuda") -> dict[str, Any]:
         "tok_embed": _truncated_normal(gen, (cfg.vocab_size, d), 0.02, dt, device),
         "layers": layers,
     }
+
+
+# --------------------------------------------------------------------------
+# Forward (dense attention stack)
+# --------------------------------------------------------------------------
+def _check_dense(cfg: ModelConfig) -> None:
+    if cfg.block != "attn" or cfg.is_moe:
+        raise NotImplementedError(
+            f"the port's forward covers the dense attention stack, got "
+            f"block={cfg.block!r} moe={cfg.is_moe} ({cfg.name})")
+    if cfg.cross_attn_every or cfg.cross_kv_len or cfg.cross_d_cond:
+        raise NotImplementedError(f"cross-attention is not ported ({cfg.name})")
+    if cfg.n_codebooks > 1 or cfg.frontend != "none":
+        raise NotImplementedError(
+            f"multi-codebook heads and stub frontends are not ported ({cfg.name})")
+    if cfg.pos_embedding == "sinusoidal":
+        raise NotImplementedError(f"sinusoidal positions are not ported ({cfg.name})")
+
+
+def slice_layer(tree: Any, idx: int) -> Any:
+    """Layer `idx` of a stacked layer tree (the reference's
+    ``tree.map(lambda a: a[idx], lay)``); `CIMWeight` leaves slice every
+    tensor field through `CIMWeight.layer`."""
+    if isinstance(tree, dict):
+        return {k: slice_layer(v, idx) for k, v in tree.items()}
+    if isinstance(tree, CIMWeight):
+        return tree.layer(idx)
+    return tree[idx]
+
+
+def _project_qkv(x, pl, cfg: ModelConfig, positions):
+    b, s, _ = x.shape
+    h = rms_norm(x, pl["attn_norm"], cfg.norm_eps)
+    q = matmul(h, pl["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    k = matmul(h, pl["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = matmul(h, pl["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = head_rms_norm(q, pl["q_norm"], cfg.norm_eps)
+        k = head_rms_norm(k, pl["k_norm"], cfg.norm_eps)
+    if cfg.pos_embedding == "rope":
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _ffn(x, pl, cfg: ModelConfig):
+    h = rms_norm(x, pl["mlp_norm"], cfg.norm_eps)
+    return (swiglu(h, pl["w_gate"], pl["w_up"], pl["w_down"]),
+            torch.zeros((), dtype=torch.float32, device=x.device))
+
+
+def _attn_block_train(x, pl, cfg: ModelConfig, positions, window: int):
+    """One layer over the full sequence; returns (x_out, aux, k, v)."""
+    q, k, v = _project_qkv(x, pl, cfg, positions)
+    attn = chunked_causal_attention(
+        q, k, v, chunk_q=cfg.attn_chunk_q, chunk_kv=cfg.attn_chunk_kv,
+        window=window)
+    attn = matmul(attn.reshape(*x.shape[:2], cfg.q_dim), pl["wo"])
+    x = x + attn
+    ff, aux = _ffn(x, pl, cfg)
+    return x + ff, aux, k, v
+
+
+def embed_inputs(params, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+    _check_dense(cfg)
+    return params["tok_embed"][batch["tokens"]].to(cfg.dtype)
+
+
+def output_logits(params, x, cfg: ModelConfig) -> torch.Tensor:
+    """Final norm and head: float32 logits (..., V).  The untied
+    `lm_head` goes through `matmul` (an analog leaf when served by an
+    executor); the tied head multiplies by `tok_embed` in float32."""
+    h = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if "lm_head" in params:
+        return matmul(h, params["lm_head"]).to(torch.float32)
+    return torch.matmul(h.to(torch.float32),
+                        params["tok_embed"].to(torch.float32).t())
+
+
+def forward(params, batch: dict, cfg: ModelConfig, *,
+            collect_cache: bool = False, pos_offset: int = 0):
+    """Full-sequence forward.  batch: tokens (B, S).  Returns (logits,
+    aux_loss, caches | None); caches k/v are (L, B, S, KV, hd)."""
+    if batch.get("cond") is not None:
+        raise NotImplementedError("cross-attention conditioning is not ported")
+    x = embed_inputs(params, batch, cfg)
+    s = x.shape[1]
+    positions = pos_offset + torch.arange(s, device=x.device)[None, :]
+    lay = params["layers"]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    ks, vs = [], []
+    for idx in range(cfg.n_layers):
+        x, aux_i, k, v = _attn_block_train(
+            x, slice_layer(lay, idx), cfg, positions, window=cfg.sliding_window)
+        aux = aux + aux_i
+        if collect_cache:
+            ks.append(k)
+            vs.append(v)
+    caches = {"k": torch.stack(ks), "v": torch.stack(vs)} if collect_cache else None
+    return output_logits(params, x, cfg), aux / cfg.n_layers, caches

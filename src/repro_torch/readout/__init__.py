@@ -1,5 +1,8 @@
 # The analog readout subsystem of the port: ONE model of the read path
 # (basis x converter x averaging x impairments) for WV verify.
+# core.wv reads through this package: load core first, so that either
+# package can be imported first.
+import repro_torch.core  # noqa: F401
 from .config import (  # noqa: F401
     Converter,
     ReadoutBasis,

@@ -8,13 +8,18 @@ the machine with the card, which has none:
 
 Tolerances: `fwht` bitwise (same butterfly, same operand order);
 `wv_step` streak / frozen / n_p / direction exactly and g within 1e-5
-(`powf` in the kernel vs `torch.pow`).
+(`powf` in the kernel vs `torch.pow`); `acim_vmm` rtol 1e-4 / atol 1e-2
+with the ADC off, and with it on every element outside that tolerance a
+sum of whole code flips, under 1% of them (`tests/acim_flips.py`: the
+kernel sums each partial sum in another order than cuBLAS).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from acim_flips import assert_flip_rule
+from repro_torch.kernels.acim_vmm import ops as vmm_ops, ref as vmm_ref
 from repro_torch.kernels.fwht import ops as fwht_ops, ref as fwht_ref
 from repro_torch.kernels.wv_step import ops as wv_ops, ref as wv_ref
 from repro_torch.kernels.wv_step.ref import WVCellParams
@@ -83,3 +88,66 @@ def test_wv_step_kernel_vs_plain(cuda, c, n, ternary, can_freeze):
     for a, b in zip(got[1:], want[1:]):
         assert a.dtype == b.dtype
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def _acim_inputs(cuda, seed, b, n_tiles, s, r, m, noise):
+    gen = torch.Generator(cuda).manual_seed(seed)
+    x = (torch.rand(b, n_tiles * r, device=cuda, generator=gen) < 0.5).float()
+    gp = torch.rand(n_tiles, s, r, m, device=cuda, generator=gen) * 7.0
+    gn = torch.rand(n_tiles, s, r, m, device=cuda, generator=gen) * 7.0
+    nz = (0.3 * torch.randn(n_tiles, s, b, m, device=cuda, generator=gen)
+          if noise else None)
+    return x, gp, gn, nz
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("b,n_tiles,r,m", [(40, 8, 128, 200), (33, 3, 70, 65),
+                                           (1, 2, 16, 7), (130, 1, 200, 129)])
+@pytest.mark.parametrize("adc_bits", [None, 10])
+@pytest.mark.parametrize("noise", [False, True])
+def test_acim_vmm_tiled_kernel_vs_plain(cuda, b, n_tiles, r, m, adc_bits, noise):
+    s, bc = 2, 3
+    x, gp, gn, nz = _acim_inputs(cuda, b + m, b, n_tiles, s, r, m, noise)
+    fs = 2.0 * r * 7.0
+    before = vmm_ops.launches
+    got = vmm_ops.acim_vmm_tiled(x, gp, gn, bc=bc, adc_bits=adc_bits,
+                                 full_scale=fs, noise=nz)
+    torch.cuda.synchronize()
+    assert vmm_ops.launches == before + 1
+    want = vmm_ref.acim_vmm_tiled(x, gp, gn, bc, adc_bits, fs, nz)
+    assert got.shape == (b, m) and got.dtype == torch.float32
+    w = fs / (1 << adc_bits) if adc_bits else 1.0
+    assert_flip_rule(got.cpu().numpy(), want.cpu().numpy(), w=w, n_tiles=n_tiles,
+                     s=s, bc=bc, adc=adc_bits is not None)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("adc_bits", [None, 10])
+def test_acim_vmm_single_tile_kernel_vs_plain(cuda, adc_bits):
+    b, s, k, m, bc = 45, 2, 96, 77, 3
+    x, gp, gn, nz = _acim_inputs(cuda, 5, b, 1, s, k, m, True)
+    gp, gn, nz = gp[0], gn[0], nz[0]
+    fs = 2.0 * k * 7.0
+    before = vmm_ops.launches_single
+    got = vmm_ops.acim_vmm(x, gp, gn, bc=bc, adc_bits=adc_bits, full_scale=fs,
+                           noise=nz)
+    torch.cuda.synchronize()
+    assert vmm_ops.launches_single == before + 1
+    want = vmm_ref.acim_vmm(x, gp, gn, bc, adc_bits, fs, nz)
+    w = fs / (1 << adc_bits) if adc_bits else 1.0
+    assert_flip_rule(got.cpu().numpy(), want.cpu().numpy(), w=w, n_tiles=1, s=s,
+                     bc=bc, adc=adc_bits is not None)
+
+
+@pytest.mark.requires_cuda
+def test_acim_vmm_kernel_rejects_what_it_does_not_take(cuda):
+    x, gp, gn, nz = _acim_inputs(cuda, 1, 4, 2, 2, 16, 8, True)
+    kw = dict(bc=3, adc_bits=10, full_scale=224.0)
+    with pytest.raises(TypeError):
+        vmm_ops.acim_vmm_tiled(x.double(), gp, gn, **kw)
+    with pytest.raises(ValueError):
+        vmm_ops.acim_vmm_tiled(x[:, :16], gp, gn, **kw)
+    with pytest.raises(ValueError):
+        vmm_ops.acim_vmm_tiled(x, gp, gn, noise=nz[:, :, :2], **kw)
+    with pytest.raises(ValueError):
+        vmm_ops.acim_vmm_tiled(x, gp.transpose(2, 3), gn.transpose(2, 3), **kw)
