@@ -28,11 +28,14 @@ CUDA toolkit.  Phases, each of which fails the run:
    write noise, verify, kernels) timed on their own;
 7. acim_vmm: at the serving path's shapes (layer 0 of the deployed w_gate
    leaf: 8 tiles of 128 rows, 2 slices, 3072 outputs; decode B = 40 and
-   prefill B = 1280 DAC rows, and the one-tile form at B = 40) the kernel
-   is held against its plain version with the ADC off (rtol 1e-4, atol
-   1e-2) and on (every other element a sum of whole code flips, under
-   1%), and timed beside its bound, its plain version and one batched
-   `torch.matmul` of the pre-ADC products (which omits the epilogue);
+   prefill B = 1280 rows, and the one-tile form at B = 40), each with
+   binary DAC planes (the kernel's bf16 x 3 tensor-core route) and with
+   raw activations (the ideal driver's f32 route), the kernel is held
+   against its plain version with the ADC off (rtol 1e-4, atol 1e-2) and
+   on (every other element a sum of whole code flips, under 1%), and
+   timed beside its bound (bytes, or operations at the route's rate),
+   its plain version and one batched `torch.matmul` of the pre-ADC
+   products (which omits the epilogue);
 8. serving: phase 5's deployment is served through `CIMExecutor` and
    `ServeEngine` — first with ideal converters in float32 against the
    digital forward on the same arrays (logits, and greedy tokens over 8
@@ -41,7 +44,8 @@ CUDA toolkit.  Phases, each of which fails the run:
    bf16: exactly 28 `acim_vmm_tiled` launches (7 analog leaves x 4
    layers) per prefill and per decode step, tokens in the vocabulary,
    logits finite; then the parts of one decode step (noise draws, DAC
-   streams, the kernel, attention, the rest) timed on their own.
+   streams, the kernel beside its byte bound, attention, the rest) timed
+   on their own.
 
 The line before the last is a JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -60,6 +64,7 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
 F32_FLOPS = 67e12                # H100 SXM float32 rate outside tensor cores
+BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor-core rate
 C_DEPLOY = 1 << 18               # the deploy's bucket size (columns)
 SEED = 0                         # weights, kernel inputs
 REPS = 20                        # calls per timing
@@ -120,9 +125,11 @@ def _time_ms(fn) -> tuple[float, float]:
     return statistics.median(per_replay), stream
 
 
-def _bound(bytes_moved: float, flops: float) -> tuple[float, str]:
+def _bound(bytes_moved: float, flops: float, rate: float = F32_FLOPS) -> tuple[float, str]:
+    """Least ms for the work: bytes at the memory rate or operations at
+    `rate`, whichever is larger, and which of the two it is."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS * 1e3
+    t_ops = flops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -403,12 +410,16 @@ def phase_acim_vmm(model, gen) -> dict:
     """The acim_vmm kernel at the serving path's shapes.
 
     Operands: layer 0 of qwen3-0.6b's w_gate leaf as deployed in phase 5
-    (T = 8 tiles of R = 128 rows, S = 2 slices, M = 3072, bc = 3), DAC
-    planes of random activations (P = 10 planes per token) and read noise
-    0.2 * N(0, 1) from the seeded generator.  Decode (4 tokens, B = 40),
-    prefill (128 tokens, B = 1280), and the one-tile form at B = 40, each
-    held against the plain version with the ADC off and on (10 bits), and
-    timed at the serving configuration (ADC on, noise on).
+    (T = 8 tiles of R = 128 rows, S = 2 slices, M = 3072, bc = 3) and read
+    noise 0.2 * N(0, 1) from the seeded generator.  Rows: decode (4
+    tokens, B = 40), prefill (128 tokens, B = 1280), and the one-tile form
+    at B = 40; each with x the DAC planes of random activations (P = 10
+    {0, 1} planes per token: the bf16 x 3 tensor-core route, bounded by
+    bytes against 3 bf16 products per MAC at the tensor-core rate) and
+    with x raw N(0, 1) activations of the same shape (the ideal driver:
+    the f32 route, bounded against the float32 rate).  Each is held
+    against the plain version with the ADC off and on (10 bits) and timed
+    at the serving configuration (ADC on, noise on).
     """
     import torch
 
@@ -426,12 +437,16 @@ def phase_acim_vmm(model, gen) -> dict:
     width = fs / (1 << cfg.adc_bits)
     d = gp - gn
     out = {}
-    for case, tokens, tiles in (("decode", 4, n_tiles), ("prefill", 128, n_tiles),
-                                ("one tile", 4, 1)):
+    for case, tokens, tiles, raw in (
+            ("decode", 4, n_tiles, False), ("prefill", 128, n_tiles, False),
+            ("one tile", 4, 1, False), ("decode raw", 4, n_tiles, True),
+            ("prefill raw", 128, n_tiles, True), ("one tile raw", 4, 1, True)):
         xf = torch.randn(tokens, w.rows_in, device="cuda", generator=gen)
         planes, _ = _dac_stream(xf, cfg)
         x = planes.reshape(-1, w.rows_in)[:, : tiles * r].contiguous()
         b = x.shape[0]
+        if raw:
+            x = torch.randn(b, tiles * r, device="cuda", generator=gen)
         nz = 0.2 * torch.randn(tiles, s, b, m, device="cuda", generator=gen)
         if tiles == 1:
             args = (x, gp[0], gn[0])
@@ -454,9 +469,10 @@ def phase_acim_vmm(model, gen) -> dict:
                                    what=f"{case} ADC on")
         xt = x.reshape(b, tiles, r).transpose(0, 1)[:, None].contiguous()  # (T, 1, B, R)
         dt = d[:tiles]                                            # (T, S, R, M)
-        bound, by = _bound(
-            4.0 * (x.numel() + 2 * dt.numel() + nz.numel() + b * m),
-            2.0 * b * tiles * r * m * s)
+        macs = b * tiles * r * m * s
+        bound, by = _bound(4.0 * (x.numel() + 2 * dt.numel() + nz.numel() + b * m),
+                           2.0 * macs if raw else 6.0 * macs,
+                           F32_FLOPS if raw else BF16_FLOPS)
         ms, ms_s = _time_ms(lambda: kern(cfg.adc_bits, kern_nz))
         plain_ms, plain_s = _time_ms(lambda: plain(cfg.adc_bits, nz))
         lib_ms, lib_s = _time_ms(lambda: torch.matmul(xt, dt))
@@ -464,19 +480,20 @@ def phase_acim_vmm(model, gen) -> dict:
             b=b, tiles=tiles, ms=ms, stream_ms=ms_s, plain_ms=plain_ms,
             plain_stream_ms=plain_s, library_ms=lib_ms, library_stream_ms=lib_s,
             bound_ms=bound, bound_by=by, max_abs_err=err_off,
-            max_abs_err_adc=err_on, flips=flips, n=b * m)
+            max_abs_err_adc=err_on, flips=flips, n=b * m,
+            split=tiles > 1 and ops._plan(b, tiles, m, ops._sm_count(x.device)))
     print(f"acim_vmm at w_gate layer 0 (R={r}, S={s}, M={m}, bc={w.bc}, FS={fs}, "
           f"ADC {cfg.adc_bits} bits, code width {width}); device ms (stream ms);")
     print("  library = one batched torch.matmul x @ (g_pos - g_neg) over (T, S), "
           "TF32 off, omitting the difference, noise, ADC and recombination")
     for case, rr in out.items():
-        print(f"  {case:8s} B={rr['b']:5d} T={rr['tiles']}: ms={rr['ms']:.4f} "
-              f"({rr['stream_ms']:.4f}) plain_ms={rr['plain_ms']:.4f} "
+        print(f"  {case:12s} B={rr['b']:5d} T={rr['tiles']} split={rr['split']}: "
+              f"ms={rr['ms']:.4f} ({rr['stream_ms']:.4f}) plain_ms={rr['plain_ms']:.4f} "
               f"({rr['plain_stream_ms']:.4f}) library_ms={rr['library_ms']:.4f} "
               f"({rr['library_stream_ms']:.4f}) bound_ms={rr['bound_ms']:.4f} "
-              f"({rr['bound_by']}) max_abs_err ADC off {rr['max_abs_err']:.3g}, "
-              f"ADC on {rr['max_abs_err_adc']:.3g} with {rr['flips']} of {rr['n']} "
-              "codes flipped")
+              f"({rr['bound_by']}, {rr['bound_ms'] / rr['ms']:.1%} of it) "
+              f"max_abs_err ADC off {rr['max_abs_err']:.3g}, ADC on "
+              f"{rr['max_abs_err_adc']:.3g} with {rr['flips']} of {rr['n']} codes flipped")
     return out
 
 
@@ -604,7 +621,7 @@ def phase_serve(model, layers: int, gen) -> dict:
                 gen_wall_s=gen_wall, peak_gib=peak_gib)
 
 
-def phase_serve_breakdown(serve: dict, gen) -> None:
+def phase_serve_breakdown(serve: dict, gen) -> dict:
     """Time the parts of one noisy decode step (batch 4) on their own:
     the read-noise draws, the DAC streams and the acim_vmm kernel of all
     analog leaf-layers, the attention of all layers, and the whole step
@@ -646,6 +663,11 @@ def phase_serve_breakdown(serve: dict, gen) -> None:
         xps.append(torch.nn.functional.pad(planes, (0, pad)).reshape(
             -1, w.n_tiles * w.tile_rows))
 
+    kernel_bytes = sum(4.0 * (xp.numel() + 2 * w.g_pos.numel() + nz.numel()
+                              + xp.shape[0] * w.n_outputs)
+                       for w, xp, nz in zip(leaves, xps, noises))
+    kernel_bound_ms = kernel_bytes / HBM_BYTES_PER_S * 1e3
+
     def kernels():
         return [vmm_ops.acim_vmm_tiled(
             xp, w.g_pos, w.g_neg, bc=w.bc, adc_bits=cim.adc_bits,
@@ -678,6 +700,11 @@ def phase_serve_breakdown(serve: dict, gen) -> None:
     for name, (dv, st) in {**times, "rest (whole - parts)": rest}.items():
         print(f"  {name:42s} {dv:10.4f} {st:10.4f} {dv / whole[0]:12.1%}")
     print(f"  {'whole decode step (no executor tick)':42s} {whole[0]:10.4f} {whole[1]:10.4f}")
+    kern_ms = times[f"acim_vmm kernel ({len(leaves)} launches)"][0]
+    print(f"  acim_vmm kernel ({len(leaves)} launches): {kern_ms:.4f} device ms against a "
+          f"byte bound of {kernel_bound_ms:.4f} ms ({kernel_bytes / 1e6:.1f} MB at "
+          f"{HBM_BYTES_PER_S / 1e12} TB/s): {kernel_bound_ms / kern_ms:.1%} of it")
+    return dict(kernel_ms=kern_ms, kernel_bound_ms=kernel_bound_ms, whole_ms=whole[0])
 
 
 def main() -> int:
@@ -768,7 +795,12 @@ def main() -> int:
             launches=serve["launches"][name], max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
-            shape=f"B={r['b']} T={r['tiles']}", adc_flips=r["flips"]))
+            shape=f"B={r['b']} T={r['tiles']}", adc_flips=r["flips"],
+            # The same kernel's other rows of phase 7 (route "raw" = f32).
+            other_cases={c: dict(ms=o["ms"], bound_ms=o["bound_ms"], bound_by=o["bound_by"],
+                                 plain_ms=o["plain_ms"], library_ms=o["library_ms"],
+                                 max_abs_err=o["max_abs_err"], shape=f"B={o['b']} T={o['tiles']}")
+                         for c, o in vmm.items() if c != case and (o["tiles"] == 1) == (case == "one tile")}))
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,9 +3,21 @@
 A CPU tensor goes to the plain version (`ref.py`); a CUDA tensor
 launches the CUDA kernel (`csrc/acim_vmm.cu`) or raises.  Both entry
 points launch the same kernel: `acim_vmm` is its one-tile view.
-`launches` counts launches made by `acim_vmm_tiled` (the serving path's
-entry) and `launches_single` those made by `acim_vmm`; nothing else
-touches them.
+`launches` counts calls of `acim_vmm_tiled` (the serving path's entry)
+that launched the kernel and `launches_single` those of `acim_vmm`;
+nothing else touches them.
+
+The grid plan is chosen here from the shapes (`_plan`).  Unsplit, one
+block per (64-row B-block, M-block) walks every tile and slice in order
+with the epilogue in registers.  Where that grid would leave the card's
+SMs idle (decode: B = 40 rows), the work is split into (tile, slice,
+B-block, M-block) items walked by persistent blocks; their raw partial
+sums go to a (T, S, B, M) workspace allocated here with `torch.empty`,
+and a second kernel adds the noise, converts and recombines in the
+reference's order.  Which products a block uses (exact bf16 x 3
+tensor-core products for chunks whose x is all 0 or 1, f32 FMAs
+otherwise) is decided on the card, per staged chunk, with no flag and no
+host sync.  Times and bounds on the card are in PERF.md.
 """
 
 from __future__ import annotations
@@ -16,6 +28,29 @@ from . import ref
 
 launches = 0
 launches_single = 0
+
+MAX_SPLIT_TILES = 384   # csrc/acim_vmm.cu kMaxSplitTiles
+_SMS: dict = {}
+
+
+def _plan(b: int, n_tiles: int, m: int, sms: int = 132) -> bool:
+    """Whether to split the leaf into (tile, slice, B-block, M-block)
+    items.  The unsplit grid of csrc/acim_vmm.cu is one block per 64 rows
+    of x and per 64 columns (B <= 64; two resident per SM) or 128 columns
+    (B > 64; one resident per SM).  Split when there is more than one
+    tile (and at most `MAX_SPLIT_TILES`) and that grid would leave any
+    of the card's `sms` SMs idle."""
+    if b <= 64:
+        blocks, resident = -(-m // 64), 2 * sms
+    else:
+        blocks, resident = -(-b // 64) * -(-m // 128), sms
+    return 1 < n_tiles <= MAX_SPLIT_TILES and blocks < resident
+
+
+def _sm_count(device: torch.device) -> int:
+    if device not in _SMS:
+        _SMS[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    return _SMS[device]
 
 
 def acim_vmm(x, g_pos, g_neg, *, bc: int, adc_bits: int | None,
@@ -98,11 +133,15 @@ def _launch(x, g_pos, g_neg, noise, bc, adc_bits, full_scale) -> torch.Tensor:
     out = torch.empty((b, m), dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         return out
+    ws = None
+    if _plan(b, n_tiles, m, _sm_count(x.device)):
+        ws = torch.empty((n_tiles, s, b, m), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.harp_acim_vmm_tiled(
             x.data_ptr(), g_pos.data_ptr(), g_neg.data_ptr(),
             None if noise is None else noise.data_ptr(), out.data_ptr(),
+            None if ws is None else ws.data_ptr(),
             b, n_tiles, s, r, m, int(bc), bits, w, lo, hi, code_max, stream,
         )
     if rc != 0:

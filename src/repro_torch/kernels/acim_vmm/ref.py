@@ -23,7 +23,7 @@ import torch
 
 from repro_torch.readout.converter import sar_quantize
 
-__all__ = ["adc_quantize", "acim_vmm", "acim_vmm_tiled"]
+__all__ = ["adc_quantize", "acim_vmm", "acim_vmm_tiled", "split_bf16x3"]
 
 
 def adc_quantize(y: torch.Tensor, bits: int, full_scale: float) -> torch.Tensor:
@@ -75,3 +75,20 @@ def acim_vmm_tiled(
         acc = acc + acim_vmm(xi, g_pos[ti], g_neg[ti], bc, adc_bits,
                              full_scale, nz)
     return acc
+
+
+def split_bf16x3(d: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The CUDA kernel's split of float32 slice differences into three
+    bfloat16 parts, h = bf16(d), m = bf16(d - h), l = bf16(d - h - m),
+    each rounded to nearest even.  h + m + l == d exactly for d == 0 and
+    |d| >= 2^-110 (3 x 8 significand bits cover float32's 24, and each
+    remainder is exact in float32), so with x in {0, 1} the three
+    bf16 products sum to x @ d up to the order of the float32 sum.
+    Plain version of the device code; nothing on the main path calls it.
+    """
+    d = d.to(torch.float32)
+    h = d.to(torch.bfloat16)
+    r = d - h.to(torch.float32)
+    m = r.to(torch.bfloat16)
+    lo = (r - m.to(torch.float32)).to(torch.bfloat16)
+    return h, m, lo

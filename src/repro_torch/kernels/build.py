@@ -99,7 +99,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         [p] * 13 + [ll, i, f, i, i, i, f, f, f, f, f, i, p]
     )
     lib.harp_wv_step.restype = i
-    lib.harp_acim_vmm_tiled.argtypes = [p] * 5 + [i] * 7 + [f] * 4 + [p]
+    lib.harp_acim_vmm_tiled.argtypes = [p] * 6 + [i] * 7 + [f] * 4 + [p]
     lib.harp_acim_vmm_tiled.restype = i
 
 

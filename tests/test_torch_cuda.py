@@ -11,7 +11,14 @@ Tolerances: `fwht` bitwise (same butterfly, same operand order);
 (`powf` in the kernel vs `torch.pow`); `acim_vmm` rtol 1e-4 / atol 1e-2
 with the ADC off, and with it on every element outside that tolerance a
 sum of whole code flips, under 1% of them (`tests/acim_flips.py`: the
-kernel sums each partial sum in another order than cuBLAS).
+kernel sums each partial sum in another order than cuBLAS).  The
+`acim_vmm` cases reach both grid plans (split over tiles at B = 40 with
+T = 8, 16 and 24; one block per B- and M-block at B = 1280 and at one
+tile), both product routes (binary DAC planes through the bf16 x 3
+tensor-core products, raw activations through f32 FMAs, and a leaf that
+mixes them), ragged B, R and M (M % 4 != 0 and planes at an unaligned
+offset take the 4-byte copies), and a captured CUDA graph, whose replay
+must equal the eager call bitwise.
 """
 
 import numpy as np
@@ -102,7 +109,11 @@ def _acim_inputs(cuda, seed, b, n_tiles, s, r, m, noise):
 
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("b,n_tiles,r,m", [(40, 8, 128, 200), (33, 3, 70, 65),
-                                           (1, 2, 16, 7), (130, 1, 200, 129)])
+                                           (1, 2, 16, 7), (130, 1, 200, 129),
+                                           (40, 16, 128, 1024), (40, 24, 128, 1024),
+                                           (40, 8, 128, 3072), (1280, 8, 128, 3072),
+                                           (40, 8, 128, 201), (97, 5, 36, 130),
+                                           (10, 8, 128, 256), (20, 16, 128, 192)])
 @pytest.mark.parametrize("adc_bits", [None, 10])
 @pytest.mark.parametrize("noise", [False, True])
 def test_acim_vmm_tiled_kernel_vs_plain(cuda, b, n_tiles, r, m, adc_bits, noise):
@@ -151,3 +162,66 @@ def test_acim_vmm_kernel_rejects_what_it_does_not_take(cuda):
         vmm_ops.acim_vmm_tiled(x, gp, gn, noise=nz[:, :, :2], **kw)
     with pytest.raises(ValueError):
         vmm_ops.acim_vmm_tiled(x, gp.transpose(2, 3), gn.transpose(2, 3), **kw)
+
+
+def _raw_inputs(cuda, seed, b, n_tiles, s, r, m, x_kind):
+    """Raw (randn) or part-binary x, and planes sliced out of a stacked
+    two-layer leaf as `CIMWeight.layer(1)` slices them (unaligned for
+    M % 4 != 0)."""
+    gen = torch.Generator(cuda).manual_seed(seed)
+    x = torch.randn(b, n_tiles * r, device=cuda, generator=gen)
+    if x_kind == "mixed":       # even tiles binary, odd tiles raw
+        bits = (torch.rand(b, n_tiles * r, device=cuda, generator=gen) < 0.5).float()
+        even = (torch.arange(n_tiles * r, device=cuda) // r) % 2 == 0
+        x = torch.where(even, bits, x)
+    gp = torch.rand(2, n_tiles, s, r, m, device=cuda, generator=gen)[1] * 7.0
+    gn = torch.rand(2, n_tiles, s, r, m, device=cuda, generator=gen)[1] * 7.0
+    nz = 0.3 * torch.randn(n_tiles, s, b, m, device=cuda, generator=gen)
+    return x, gp, gn, nz
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("b,n_tiles,r,m,x_kind", [
+    (40, 8, 128, 3072, "raw"), (1280, 8, 128, 3072, "raw"), (40, 24, 128, 1024, "raw"),
+    (33, 3, 70, 65, "raw"), (40, 8, 128, 201, "mixed"), (130, 4, 100, 67, "mixed"),
+    (45, 1, 96, 77, "raw")])
+@pytest.mark.parametrize("adc_bits", [None, 10])
+def test_acim_vmm_kernel_raw_x_vs_plain(cuda, b, n_tiles, r, m, x_kind, adc_bits):
+    s, bc = 2, 3
+    x, gp, gn, nz = _raw_inputs(cuda, b * m + r, b, n_tiles, s, r, m, x_kind)
+    fs = 2.0 * r * 7.0
+    if n_tiles == 1:            # the one-tile form
+        before = vmm_ops.launches_single
+        got = vmm_ops.acim_vmm(x, gp[0], gn[0], bc=bc, adc_bits=adc_bits,
+                               full_scale=fs, noise=nz[0])
+        want = vmm_ref.acim_vmm(x, gp[0], gn[0], bc, adc_bits, fs, nz[0])
+        torch.cuda.synchronize()
+        assert vmm_ops.launches_single == before + 1
+    else:
+        before = vmm_ops.launches
+        got = vmm_ops.acim_vmm_tiled(x, gp, gn, bc=bc, adc_bits=adc_bits,
+                                     full_scale=fs, noise=nz)
+        want = vmm_ref.acim_vmm_tiled(x, gp, gn, bc, adc_bits, fs, nz)
+        torch.cuda.synchronize()
+        assert vmm_ops.launches == before + 1
+    w = fs / (1 << adc_bits) if adc_bits else 1.0
+    assert_flip_rule(got.cpu().numpy(), want.cpu().numpy(), w=w, n_tiles=n_tiles,
+                     s=s, bc=bc, adc=adc_bits is not None)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("b,n_tiles", [(40, 8), (1280, 8)])
+def test_acim_vmm_kernel_replays_in_cuda_graph(cuda, b, n_tiles):
+    r, m, s = 128, 3072, 2
+    assert vmm_ops._plan(b, n_tiles, m, vmm_ops._sm_count(cuda)) is (b == 40)
+    x, gp, gn, nz = _acim_inputs(cuda, 3, b, n_tiles, s, r, m, True)
+    kw = dict(bc=3, adc_bits=10, full_scale=2.0 * r * 7.0, noise=nz)
+    eager = vmm_ops.acim_vmm_tiled(x, gp, gn, **kw)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = vmm_ops.acim_vmm_tiled(x, gp, gn, **kw)
+    captured.fill_(float("nan"))
+    graph.replay()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(captured, eager, rtol=0, atol=0)
