@@ -45,7 +45,29 @@ CUDA toolkit.  Phases, each of which fails the run:
    layers) per prefill and per decode step, tokens in the vocabulary,
    logits finite; then the parts of one decode step (noise draws, DAC
    streams, the kernel beside its byte bound, attention, the rest) timed
-   on their own.
+   on their own;
+9. continuous serving: phase 5's deployment is served by the
+   `ContinuousScheduler` with `examples/serve_lm.py --analog
+   --continuous`'s defaults (4 slots, max_len 72, 16 Poisson requests at
+   load 0.3, prompts of 16-32 and 16-32 new tokens, greedy), while a
+   VERIFY_TRIGGERED `LifetimeSimulator` fed the executor's reads ages the
+   arrays one hour and scrubs a two-leaf window every 8 decode steps;
+   then 8 shorter requests with 16-token prefill chunks (and 16-token
+   attention chunks, which the prefill chunks must align with) and EDF
+   admission.  Each stream must complete every request with tokens in
+   the vocabulary, build no step function after warmup, make one host
+   sync per decode step (the dispatches run under CUDA sync debugging
+   set to "error"), launch exactly 28 `acim_vmm_tiled` per admission,
+   chunk and decode step, and serve ``decode_steps * n_slots +
+   prefill_tokens`` tokens; every scrub epoch must launch `fwht`, and
+   the run must re-program a column (`wv_step` launches).  Times and
+   launches per dispatch are read from the scheduler's `obs` spans.  Then
+   `acim_vmm` at B = 160 and 320 (16- and 32-token admissions),
+   `fwht` / `wv_step` at the run's smallest re-programmed subset, and
+   `fwht` on the verify sweeps' own operands (conductances, targets and
+   comparator signs of the largest leaf and of a norm-scale leaf) are
+   held and timed as in phases 3 and 7, and the parts of a decode step
+   and of a scrub epoch are timed.
 
 The line before the last is a JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -68,6 +90,7 @@ BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor-core rate
 C_DEPLOY = 1 << 18               # the deploy's bucket size (columns)
 SEED = 0                         # weights, kernel inputs
 REPS = 20                        # calls per timing
+AGING_S = 3600.0                 # phase 9: device age added per scrub epoch
 
 
 def _nvidia_smi() -> str:
@@ -133,26 +156,30 @@ def _bound(bytes_moved: float, flops: float, rate: float = F32_FLOPS) -> tuple[f
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_fwht(n: int, gen) -> dict:
+def phase_fwht(n: int, gen, c: int = C_DEPLOY, x=None) -> dict:
+    """`fwht` against its plain version, bitwise, and timed: on a random
+    (c, n) batch, or on the operand `x` when one is given."""
     import torch
 
     from repro_torch.core.hadamard import hadamard_matrix
     from repro_torch.kernels.fwht import ops, ref
 
-    x = torch.randn(C_DEPLOY, n, device="cuda", generator=gen)
+    if x is None:
+        x = torch.randn(c, n, device="cuda", generator=gen)
+    c, n = x.numel() // x.shape[-1], x.shape[-1]
     y = ops.fwht(x)
     want = ref.fwht(x)
     torch.cuda.synchronize()
     err = (y - want).abs().max().item()
     if not torch.equal(y, want):
         bad = (y != want).sum().item()
-        raise AssertionError(f"fwht N={n}: {bad} values differ from the plain "
-                             f"version, by up to {err}")
+        raise AssertionError(f"fwht C={c} N={n}: {bad} values differ from the "
+                             f"plain version, by up to {err}")
     h = hadamard_matrix(n, device="cuda")
     lib = torch.matmul(x, h)
     torch.cuda.synchronize()
     err_lib = (lib - want).abs().max().item()
-    bound, by = _bound(8.0 * C_DEPLOY * n, C_DEPLOY * n * math.log2(n))
+    bound, by = _bound(8.0 * c * n, c * n * math.log2(n))
     ms, ms_s = _time_ms(lambda: ops.fwht(x))
     plain, plain_s = _time_ms(lambda: ref.fwht(x))
     lib_ms, lib_s = _time_ms(lambda: torch.matmul(x, h))
@@ -163,13 +190,12 @@ def phase_fwht(n: int, gen) -> dict:
     )
 
 
-def phase_wv_step(n: int, ternary: bool, gen) -> dict:
+def phase_wv_step(n: int, ternary: bool, gen, c: int = C_DEPLOY) -> dict:
     import torch
 
     from repro_torch.kernels.wv_step import ops, ref
     from repro_torch.kernels.wv_step.ref import WVCellParams
 
-    c = C_DEPLOY
     dev = "cuda"
     r = lambda: torch.randn(c, n, device=dev, generator=gen)  # noqa: E731
     agg = r() * (8.0 if ternary else 1.0)
@@ -194,11 +220,11 @@ def phase_wv_step(n: int, ternary: bool, gen) -> dict:
     for name, a, b in zip(names[1:], got[1:], want[1:]):
         if not torch.equal(a, b):
             raise AssertionError(
-                f"wv_step N={n} ternary={ternary}: {name} differs in "
+                f"wv_step C={c} N={n} ternary={ternary}: {name} differs in "
                 f"{(a != b).sum().item()} cells")
     err = (got[0] - want[0]).abs().max().item()
     if not err <= 1e-5:
-        raise AssertionError(f"wv_step N={n} ternary={ternary}: g off by {err}")
+        raise AssertionError(f"wv_step C={c} N={n} ternary={ternary}: g off by {err}")
     read = (25 if ternary else 29) * c * n      # dev_mag unread when ternary
     bound, by = _bound(read + 17.0 * c * n, 30.0 * c * n)
     ms, ms_s = _time_ms(lambda: ops.wv_cell_update(*args, p))
@@ -421,67 +447,82 @@ def phase_acim_vmm(model, gen) -> dict:
     against the plain version with the ADC off and on (10 bits) and timed
     at the serving configuration (ADC on, noise on).
     """
-    import torch
-
     from repro_torch.cim import CIMConfig, build_weight
-    from repro_torch.cim.mvm import _dac_stream
     from repro_torch.core import rng
-    from repro_torch.kernels.acim_vmm import ops, ref
 
     cfg = CIMConfig(dac_bits=6, adc_bits=10, sigma_read_lsb=0.2)
     w = build_weight(model.arrays["['layers']['w_gate']"], cfg,
                      rng.PRNGKey(0, device="cuda")).layer(0)
+    out = {case: _vmm_case(w, cfg, tokens, tiles, raw, gen, case)
+           for case, tokens, tiles, raw in (
+               ("decode", 4, w.n_tiles, False), ("prefill", 128, w.n_tiles, False),
+               ("one tile", 4, 1, False), ("decode raw", 4, w.n_tiles, True),
+               ("prefill raw", 128, w.n_tiles, True), ("one tile raw", 4, 1, True))}
+    _print_vmm(w, cfg, out)
+    return out
+
+
+def _vmm_case(w, cfg, tokens: int, tiles: int, raw: bool, gen, case: str) -> dict:
+    """Hold one `acim_vmm` case against its plain version (ADC off and
+    on) and time it beside its bound, its plain version and the batched
+    `torch.matmul` of its pre-ADC products; see `phase_acim_vmm`."""
+    import torch
+
+    from repro_torch.cim.mvm import _dac_stream
+    from repro_torch.kernels.acim_vmm import ops, ref
+
     gp, gn = w.g_pos, w.g_neg
-    n_tiles, s, r, m = gp.shape
+    _, s, r, m = gp.shape
     fs = 2.0 * r * (w.levels - 1)
     width = fs / (1 << cfg.adc_bits)
     d = gp - gn
-    out = {}
-    for case, tokens, tiles, raw in (
-            ("decode", 4, n_tiles, False), ("prefill", 128, n_tiles, False),
-            ("one tile", 4, 1, False), ("decode raw", 4, n_tiles, True),
-            ("prefill raw", 128, n_tiles, True), ("one tile raw", 4, 1, True)):
-        xf = torch.randn(tokens, w.rows_in, device="cuda", generator=gen)
-        planes, _ = _dac_stream(xf, cfg)
-        x = planes.reshape(-1, w.rows_in)[:, : tiles * r].contiguous()
-        b = x.shape[0]
-        if raw:
-            x = torch.randn(b, tiles * r, device="cuda", generator=gen)
-        nz = 0.2 * torch.randn(tiles, s, b, m, device="cuda", generator=gen)
-        if tiles == 1:
-            args = (x, gp[0], gn[0])
-            kern = lambda a, n: ops.acim_vmm(*args, bc=w.bc, adc_bits=a,  # noqa: E731
-                                             full_scale=fs, noise=n)
-            plain = lambda a, n: ref.acim_vmm(*args, w.bc, a, fs,  # noqa: E731
-                                              None if n is None else n[0])
-            kern_nz = nz[0]
-        else:
-            args = (x, gp, gn)
-            kern = lambda a, n: ops.acim_vmm_tiled(*args, bc=w.bc, adc_bits=a,  # noqa: E731
-                                                   full_scale=fs, noise=n)
-            plain = lambda a, n: ref.acim_vmm_tiled(*args, w.bc, a, fs, n)  # noqa: E731
-            kern_nz = nz
-        err_off, _ = _check_vmm(kern(None, kern_nz), plain(None, nz), w=width,
-                                n_tiles=tiles, s=s, bc=w.bc, adc=False,
-                                what=f"{case} ADC off")
-        err_on, flips = _check_vmm(kern(cfg.adc_bits, kern_nz), plain(cfg.adc_bits, nz),
-                                   w=width, n_tiles=tiles, s=s, bc=w.bc, adc=True,
-                                   what=f"{case} ADC on")
-        xt = x.reshape(b, tiles, r).transpose(0, 1)[:, None].contiguous()  # (T, 1, B, R)
-        dt = d[:tiles]                                            # (T, S, R, M)
-        macs = b * tiles * r * m * s
-        bound, by = _bound(4.0 * (x.numel() + 2 * dt.numel() + nz.numel() + b * m),
-                           2.0 * macs if raw else 6.0 * macs,
-                           F32_FLOPS if raw else BF16_FLOPS)
-        ms, ms_s = _time_ms(lambda: kern(cfg.adc_bits, kern_nz))
-        plain_ms, plain_s = _time_ms(lambda: plain(cfg.adc_bits, nz))
-        lib_ms, lib_s = _time_ms(lambda: torch.matmul(xt, dt))
-        out[case] = dict(
-            b=b, tiles=tiles, ms=ms, stream_ms=ms_s, plain_ms=plain_ms,
-            plain_stream_ms=plain_s, library_ms=lib_ms, library_stream_ms=lib_s,
-            bound_ms=bound, bound_by=by, max_abs_err=err_off,
-            max_abs_err_adc=err_on, flips=flips, n=b * m,
-            split=tiles > 1 and ops._plan(b, tiles, m, ops._sm_count(x.device)))
+    xf = torch.randn(tokens, w.rows_in, device="cuda", generator=gen)
+    planes, _ = _dac_stream(xf, cfg)
+    x = planes.reshape(-1, w.rows_in)[:, : tiles * r].contiguous()
+    b = x.shape[0]
+    if raw:
+        x = torch.randn(b, tiles * r, device="cuda", generator=gen)
+    nz = 0.2 * torch.randn(tiles, s, b, m, device="cuda", generator=gen)
+    if tiles == 1:
+        args = (x, gp[0], gn[0])
+        kern = lambda a, n: ops.acim_vmm(*args, bc=w.bc, adc_bits=a,  # noqa: E731
+                                         full_scale=fs, noise=n)
+        plain = lambda a, n: ref.acim_vmm(*args, w.bc, a, fs,  # noqa: E731
+                                          None if n is None else n[0])
+        kern_nz = nz[0]
+    else:
+        args = (x, gp, gn)
+        kern = lambda a, n: ops.acim_vmm_tiled(*args, bc=w.bc, adc_bits=a,  # noqa: E731
+                                               full_scale=fs, noise=n)
+        plain = lambda a, n: ref.acim_vmm_tiled(*args, w.bc, a, fs, n)  # noqa: E731
+        kern_nz = nz
+    err_off, _ = _check_vmm(kern(None, kern_nz), plain(None, nz), w=width,
+                            n_tiles=tiles, s=s, bc=w.bc, adc=False,
+                            what=f"{case} ADC off")
+    err_on, flips = _check_vmm(kern(cfg.adc_bits, kern_nz), plain(cfg.adc_bits, nz),
+                               w=width, n_tiles=tiles, s=s, bc=w.bc, adc=True,
+                               what=f"{case} ADC on")
+    xt = x.reshape(b, tiles, r).transpose(0, 1)[:, None].contiguous()  # (T, 1, B, R)
+    dt = d[:tiles]                                            # (T, S, R, M)
+    macs = b * tiles * r * m * s
+    bound, by = _bound(4.0 * (x.numel() + 2 * dt.numel() + nz.numel() + b * m),
+                       2.0 * macs if raw else 6.0 * macs,
+                       F32_FLOPS if raw else BF16_FLOPS)
+    ms, ms_s = _time_ms(lambda: kern(cfg.adc_bits, kern_nz))
+    plain_ms, plain_s = _time_ms(lambda: plain(cfg.adc_bits, nz))
+    lib_ms, lib_s = _time_ms(lambda: torch.matmul(xt, dt))
+    return dict(
+        b=b, tiles=tiles, ms=ms, stream_ms=ms_s, plain_ms=plain_ms,
+        plain_stream_ms=plain_s, library_ms=lib_ms, library_stream_ms=lib_s,
+        bound_ms=bound, bound_by=by, max_abs_err=err_off,
+        max_abs_err_adc=err_on, flips=flips, n=b * m,
+        split=tiles > 1 and ops._plan(b, tiles, m, ops._sm_count(x.device)))
+
+
+def _print_vmm(w, cfg, out: dict) -> None:
+    _, s, r, m = w.g_pos.shape
+    fs = 2.0 * r * (w.levels - 1)
+    width = fs / (1 << cfg.adc_bits)
     print(f"acim_vmm at w_gate layer 0 (R={r}, S={s}, M={m}, bc={w.bc}, FS={fs}, "
           f"ADC {cfg.adc_bits} bits, code width {width}); device ms (stream ms);")
     print("  library = one batched torch.matmul x @ (g_pos - g_neg) over (T, S), "
@@ -494,7 +535,6 @@ def phase_acim_vmm(model, gen) -> dict:
               f"({rr['bound_by']}, {rr['bound_ms'] / rr['ms']:.1%} of it) "
               f"max_abs_err ADC off {rr['max_abs_err']:.3g}, ADC on "
               f"{rr['max_abs_err_adc']:.3g} with {rr['flips']} of {rr['n']} codes flipped")
-    return out
 
 
 def phase_serve(model, layers: int, gen) -> dict:
@@ -706,6 +746,306 @@ def phase_serve_breakdown(serve: dict, gen) -> dict:
           f"{HBM_BYTES_PER_S / 1e12} TB/s): {kernel_bound_ms / kern_ms:.1%} of it")
     return dict(kernel_ms=kern_ms, kernel_bound_ms=kernel_bound_ms, whole_ms=whole[0])
 
+def _host_ms(fn, reps: int = 3) -> float:
+    """Median host-clock ms of `fn()` followed by a device sync."""
+    import torch
+
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(out)
+
+
+def _serve_stream(sched, ex, reqs, vocab: int, leaves: int, what: str) -> dict:
+    """Serve `reqs` through `sched` with every kernel count set to 0 just
+    before the run and read just after, and check phase 9's contracts:
+    every request completes with tokens in the vocabulary, no step
+    function is built after warmup, one host sync per decode step,
+    exactly `leaves` acim_vmm_tiled launches per dispatch (each
+    admission, prefill chunk and decode step), and the executor served
+    ``decode_steps * n_slots + prefill_tokens`` tokens.  Times and
+    launches per dispatch come from the scheduler's own spans: host-clock
+    ms, and the kernels launched inside each (its ``launches`` arg)."""
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.kernels.acim_vmm import ops as vmm_ops
+    from repro_torch.kernels.fwht import ops as fwht_ops
+    from repro_torch.kernels.wv_step import ops as wv_ops
+
+    warm = dict(sched.trace_counts)
+    tokens0 = ex.tokens_served
+    torch.cuda.synchronize()
+    obs.trace.reset()
+    vmm_ops.launches = vmm_ops.launches_single = 0
+    fwht_ops.launches = wv_ops.launches = 0
+    recs = sched.run(reqs)
+    torch.cuda.synchronize()
+    launches = {"acim_vmm_tiled": vmm_ops.launches, "acim_vmm": vmm_ops.launches_single,
+                "fwht": fwht_ops.launches, "wv_step": wv_ops.launches}
+    spans = {}
+    for e in obs.trace.events():
+        if e["ph"] == "X":
+            spans.setdefault(e["name"], []).append(e)
+    ms = {n: [e["dur"] / 1e3 for e in spans.get(n, [])]
+          for n in ("serve.decode", "serve.admit", "serve.prefill_chunk", "serve.maintenance")}
+    dispatches = [e for n in ("serve.admit", "serve.prefill_chunk", "serve.decode")
+                  for e in spans.get(n, [])]
+    per_dispatch = {e["args"]["launches"].get("acim_vmm_tiled", 0) for e in dispatches}
+
+    if len(recs) != len(reqs):
+        raise AssertionError(f"{what}: {len(recs)} of {len(reqs)} requests completed")
+    want_new = {r.rid: r.max_new for r in reqs}
+    for r in recs:
+        if r.n_generated != want_new[r.rid] or not all(0 <= t < vocab for t in r.tokens):
+            raise AssertionError(f"{what}: request {r.rid} served {r.tokens}")
+    if sched.trace_counts != warm:
+        raise AssertionError(f"{what}: step functions built after warmup: "
+                             f"{warm} -> {sched.trace_counts}")
+    if sched.host_syncs != sched.decode_steps:
+        raise AssertionError(f"{what}: {sched.host_syncs} host syncs in "
+                             f"{sched.decode_steps} decode steps")
+    if len(ms["serve.decode"]) != sched.decode_steps:
+        raise AssertionError(f"{what}: {len(ms['serve.decode'])} decode spans in "
+                             f"{sched.decode_steps} decode steps")
+    if per_dispatch != {leaves}:
+        raise AssertionError(f"{what}: acim_vmm_tiled launches per dispatch "
+                             f"{sorted(per_dispatch)}, expected {leaves} each")
+    if launches["acim_vmm_tiled"] != leaves * len(dispatches):
+        raise AssertionError(f"{what}: {launches['acim_vmm_tiled']} acim_vmm_tiled launches "
+                             f"in {len(dispatches)} dispatches of {leaves}")
+    served = ex.tokens_served - tokens0
+    if served != sched.decode_steps * sched.n_slots + sched.prefill_tokens:
+        raise AssertionError(f"{what}: executor served {served} tokens; "
+                             f"{sched.decode_steps} steps x {sched.n_slots} slots + "
+                             f"{sched.prefill_tokens} prefill tokens")
+    return dict(recs=recs, launches=launches, dispatches=len(dispatches),
+                stats=sched.latency_stats(), step_ms=ms["serve.decode"],
+                admit_ms=ms["serve.admit"], chunk_ms=ms["serve.prefill_chunk"],
+                epoch_ms=ms["serve.maintenance"],
+                epoch_launches=[e["args"]["launches"] for e in spans.get("serve.maintenance", [])],
+                reprogram=[e["args"] for e in spans.get("lifetime.reprogram", [])])
+
+
+def _print_stream(what: str, sched, run: dict) -> None:
+    st = run["stats"]
+    med = lambda v: f"{statistics.median(v):.2f}" if v else "-"  # noqa: E731
+    print(f"  {what}: {int(st['completed'])} requests, {sched.decode_steps} decode steps, "
+          f"{sched.admits} admissions, {sched.prefill_tokens} prefill tokens, "
+          f"{run['dispatches']} dispatches of {run['launches']['acim_vmm_tiled'] // max(run['dispatches'], 1)} "
+          f"acim_vmm_tiled launches each; host syncs {sched.host_syncs}; "
+          f"step functions {sched.trace_counts}")
+    print(f"    decode step median {med(run['step_ms'])} ms (min {min(run['step_ms']):.2f}, "
+          f"max {max(run['step_ms']):.2f}; host clock of the `serve.decode` spans); "
+          f"{st['tokens_per_s']:.2f} tokens/s over the run's wall "
+          f"{st['wall_s']:.2f} s ({st['decode_tokens_per_s']:.2f} counting decode only)")
+    print(f"    latency p50 {st['p50_latency_steps']:.1f} / p99 {st['p99_latency_steps']:.1f} "
+          f"steps; TTFT p50 {st['p50_ttft_steps']:.1f} / p99 {st['p99_ttft_steps']:.1f} "
+          f"steps; mean queue delay {st['mean_queue_delay_steps']:.2f} steps"
+          + (f"; deadline misses {int(st['deadline_misses'])} of "
+             f"{int(st['deadline_requests'])}" if "deadline_requests" in st else ""))
+    print(f"    admission ms median {med(run['admit_ms'])} ({len(run['admit_ms'])}, ending "
+          f"in its token's sync); prefill chunk ms median {med(run['chunk_ms'])} "
+          f"({len(run['chunk_ms'])}, only the final chunk ends in a sync); "
+          f"launches {run['launches']}")
+
+
+def phase_continuous(model, layers: int, gen) -> dict:
+    """Phase 9: continuous batching with an interleaved lifetime scrub.
+
+    `examples/serve_lm.py --analog --continuous`'s defaults through the
+    port, on phase 5's deployment: greedy `ServeEngine` over a
+    `CIMExecutor` (DAC 6, ADC 10 bits, read noise 0.2 LSB), a
+    `ContinuousScheduler` of 4 slots and max_len 72 warmed for prompts of
+    16-32 tokens, 16 Poisson requests (load 0.3, 16-32 new tokens), and a
+    VERIFY_TRIGGERED `LifetimeSimulator` fed the executor's reads that
+    ages the arrays `AGING_S` and scrubs a two-leaf window every 8 decode
+    steps.  Then 8 shorter requests with chunked prefill (16-token
+    chunks, so 16-token attention chunks), EDF admission and TTFT
+    deadlines.  Then the kernels at this
+    path's shapes, and the parts of a decode step and of a scrub epoch.
+    """
+    import numpy as np
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.cim import CIMConfig, CIMExecutor, build_weight
+    from repro_torch.configs.qwen3_0_6b import CONFIG
+    from repro_torch.core import rng
+    from repro_torch.lifetime import (
+        DriftConfig,
+        LifetimeSimulator,
+        RefreshConfig,
+        RefreshPolicy,
+        advance,
+        flag_columns,
+    )
+    from repro_torch.lifetime.refresh import _reprogram_subset, default_flag_params
+    from repro_torch.readout import config as ro_config
+    from repro_torch.readout import readout as ro
+    from repro_torch.serving import ContinuousScheduler, ServeEngine, poisson_requests
+
+    cfg = CONFIG.replace(n_layers=layers)
+    leaves = 7 * layers
+    cim = CIMConfig(dac_bits=6, adc_bits=10, sigma_read_lsb=0.2)
+    ex = CIMExecutor(model, cim, rng.PRNGKey(7, device="cuda"))
+    engine = ServeEngine(cfg, executor=ex)
+    t0 = time.perf_counter()
+    sim = LifetimeSimulator(rng.PRNGKey(SEED + 4, device="cuda"), model, DriftConfig(),
+                            RefreshConfig(policy=RefreshPolicy.VERIFY_TRIGGERED),
+                            traffic_fn=ex.drain_reads)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    epochs = []
+    sched = ContinuousScheduler(engine, n_slots=4, max_len=72,
+                                key=rng.PRNGKey(11, device="cuda"),
+                                maintenance_fn=lambda: epochs.append(
+                                    sim.step_epoch(AGING_S, max_leaves=2)),
+                                maintenance_every=8, device="cuda")
+    t0 = time.perf_counter()
+    sched.warmup(prompt_range=(16, 32))
+    warm_s = time.perf_counter() - t0
+    reqs = poisson_requests(3, 16, rate=0.3, vocab=cfg.vocab_size, prompt_lens=(16, 32),
+                            max_new=(16, 32))
+    main = _serve_stream(sched, ex, reqs, cfg.vocab_size, leaves, "stream 1")
+    # Each re-program dispatch's column count: the flagged subset padded
+    # to a power of two, capped at the leaf (`lifetime.reprogram` spans).
+    subsets = [a["padded"] for a in main["reprogram"]]
+    ep_fwht = [e.get("fwht", 0) for e in main["epoch_launches"]]
+    ep_wv = [e.get("wv_step", 0) for e in main["epoch_launches"]]
+    n_rep = sum(r.columns_reprogrammed for r in epochs)
+    if not epochs or len(epochs) != sched.decode_steps // 8 or len(ep_fwht) != len(epochs):
+        raise AssertionError(f"{len(epochs)} scrub epochs ({len(ep_fwht)} spans) in "
+                             f"{sched.decode_steps} steps")
+    if not all(n > 0 for n in ep_fwht):
+        raise AssertionError(f"scrub epochs without fwht: {ep_fwht}")
+    if not (n_rep > 0 and main["launches"]["wv_step"] > 0):
+        raise AssertionError(f"no column re-programmed over the run ({n_rep}; wv_step "
+                             f"{main['launches']['wv_step']})")
+    print(f"continuous serve qwen3-0.6b layers={layers} analog ({cim}), greedy, "
+          f"4 slots, max_len 72 (warmup {warm_s:.2f} s; lifetime state {init_s:.2f} s)")
+    _print_stream("stream 1 (16 requests, FIFO, whole-bucket admission, scrub every 8 steps)",
+                  sched, main)
+    ep_ms = main["epoch_ms"]
+    print(f"    scrub: {len(epochs)} epochs of {AGING_S:.0f} s aging, 2 leaves each; "
+          f"flagged {[r.columns_flagged for r in epochs]}, re-programmed "
+          f"{[r.columns_reprogrammed for r in epochs]} columns; fwht launches "
+          f"{ep_fwht}, wv_step {ep_wv}; epoch ms median {statistics.median(ep_ms):.1f} "
+          f"(min {min(ep_ms):.1f}, max {max(ep_ms):.1f}; `serve.maintenance` spans); "
+          f"drift rms {epochs[-1].rms_drift_lsb:.4f} LSB, "
+          f"refresh debt {epochs[-1].refresh_debt_epochs:.0f} epochs")
+
+    # 16-token chunks must align with the attention's chunk grid (512 in
+    # qwen3-0.6b's config, in both packages): stream 2 serves the same
+    # executor with 16-token attention chunks.
+    engine2 = ServeEngine(cfg.replace(attn_chunk_q=16, attn_chunk_kv=16), executor=ex)
+    sched2 = ContinuousScheduler(engine2, n_slots=4, max_len=72,
+                                 key=rng.PRNGKey(11, device="cuda"),
+                                 prefill_chunk_tokens=16, admission_policy="edf",
+                                 device="cuda")
+    sched2.warmup(prompt_range=(16, 32))
+    reqs2 = poisson_requests(4, 8, rate=0.3, vocab=cfg.vocab_size, prompt_lens=(16, 32),
+                             max_new=(8, 16), ttft_slack=(8.0, 32.0))
+    chunked = _serve_stream(sched2, ex, reqs2, cfg.vocab_size, leaves, "stream 2")
+    if max(r.n_chunks for r in chunked["recs"]) < 2:
+        raise AssertionError("stream 2: no prompt was prefilled in chunks")
+    _print_stream("stream 2 (8 requests, EDF, 16-token prefill chunks)", sched2, chunked)
+
+    # The kernels at this path's shapes.
+    w = build_weight(model.arrays["['layers']['w_gate']"], cim,
+                     rng.PRNGKey(0, device="cuda")).layer(0)
+    vmm = {f"admit {t}": _vmm_case(w, cim, t, w.n_tiles, False, gen, f"admit {t} tokens")
+           for t in (16, 32)}
+    _print_vmm(w, cim, vmm)
+    sub = min(subsets)
+    sub_k = {"fwht": [dict(phase_fwht(32, gen, c=sub), case=f"re-program subset C={sub}")],
+             "wv_step": [dict(phase_wv_step(32, True, gen, c=sub),
+                              case=f"re-program subset C={sub}")]}
+    # `fwht` on the verify sweeps' own operands: each HARP sweep of a leaf
+    # transforms its live conductances, its targets and the comparator's
+    # signs.  The largest leaf and the smallest norm-scale leaf.
+    names = sorted(sim.states)
+    leaf_c = {n: sim.states[n].g.shape[0] for n in names}
+    norms = [n for n in names if "norm" in n]
+    if not norms:
+        raise AssertionError(f"no norm-scale leaf among {names}")
+    vcfg = model.wv_cfg.replace(
+        decision_threshold_lsb=default_flag_params(model.wv_cfg.method)[2])
+    rcfg = ro_config.for_wv_method(vcfg)
+    for n in (max(names, key=leaf_c.get), min(norms, key=leaf_c.get)):
+        g = sim.states[n].g
+        t = model.arrays[n].targets.to(torch.float32)
+        signs = ro.read_columns(rng.PRNGKey(SEED + 5, device="cuda"), g, rcfg,
+                                targets=t).values
+        for what, x in (("g", g), ("targets", t), ("signs", signs)):
+            sub_k["fwht"].append(dict(phase_fwht(32, gen, x=x),
+                                      case=f"verify {n} {what} C={leaf_c[n]}"))
+    print(f"  the scrub re-programmed subsets of {sorted(subsets)} columns; the kernels "
+          f"at the smallest and (fwht) on the verify sweeps' operands, N=32; "
+          f"device ms (stream ms), bitwise equal to the plain version:")
+    for name, rows in sub_k.items():
+        for r in rows:
+            lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+            print(f"    {name:8s} {r['case']:52s} ms={r['ms']:.4f} ({r['stream_ms']:.4f}) "
+                  f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
+                  f"({r['bound_by']}) library_ms={lib} max_abs_err={r['max_abs_err']:.3g}")
+
+    # Where a decode step's time goes.
+    fn = sched._get_decode()
+    params = ex.params()
+    vecs = torch.stack([
+        torch.randint(0, cfg.vocab_size, (4,), device="cuda", generator=gen, dtype=torch.int32),
+        torch.arange(4, device="cuda", dtype=torch.int32),
+        torch.full((4,), 3, device="cuda", dtype=torch.int32)])
+    dig = sched._fresh_occupancy()
+    dec_dev, dec_stream = _time_ms(lambda: fn(params, sched.cache, vecs, sched.key, dig))
+    toks, m, dig2, _ = fn(params, sched.cache, vecs, sched.key, dig)
+    tick_ms = _host_ms(lambda: ex.tick(4), reps=5)
+    fetch_ms = _host_ms(lambda: obs.metrics.fetch(
+        {"toks": toks, "m": m, "dig": dig2.as_tree()}), reps=5)
+    whole = statistics.median(main["step_ms"])
+    print(f"  breakdown of one scheduler decode step (4 slots, {layers} layers): "
+          f"whole step {whole:.2f} host ms (median of {len(main['step_ms'])} in stream 1); "
+          f"executor tick {tick_ms:.2f} host ms; decode step function {dec_dev:.4f} "
+          f"device ms / {dec_stream:.4f} stream ms; the one fetch {fetch_ms:.3f} host ms")
+
+    # Where a scrub epoch's time goes (the next window, on the live state).
+    window = [names[(sim._scrub_cursor + j) % len(names)] for j in range(2)]
+    wv_cfg, cost = model.wv_cfg, model.cost
+    key = rng.PRNGKey(SEED + 6, device="cuda")
+    masks = {}
+
+    def verify():
+        for n in window:
+            masks[n] = flag_columns(key, sim.states[n].g, model.arrays[n].targets, wv_cfg,
+                                    sim.refresh_cfg)[0]
+
+    parts = {
+        f"advance ({len(names)} leaves)": _host_ms(lambda: [
+            advance(None, st, AGING_S, 0.0, wv_cfg.device, sim.drift_cfg)
+            for st in sim.states.values()]),
+        "verify sweeps (2 leaves, 4 HARP sweeps each)": _host_ms(verify),
+    }
+    masks = {n: obs.metrics.fetch(v) > 0.5 for n, v in masks.items()}
+    parts[f"re-program ({sum(int(v.sum()) for v in masks.values())} flagged columns)"] = \
+        _host_ms(lambda: [_reprogram_subset(key, sim.states[n], model.arrays[n].targets,
+                                            masks[n], wv_cfg, cost, sim.drift_cfg)
+                          for n in window], reps=1)
+    parts[f"re-tiling ({len(ex._analog)} analog leaves)"] = _host_ms(
+        lambda: [ex._tile(n, model.arrays[n]) for n in ex._analog])
+    parts["health fetch (one sync)"] = _host_ms(sim._epoch_health)
+    cols = {n: int(model.arrays[n].g.shape[0]) for n in window}
+    print(f"  breakdown of one scrub epoch (host ms, each part ending in a sync; "
+          f"window {cols}):")
+    for name, v in parts.items():
+        print(f"    {name:48s} {v:10.2f}")
+    print(f"    {'whole epoch in the run (median)':48s} {statistics.median(ep_ms):10.2f}")
+    return dict(launches=main["launches"], launches_stream2=chunked["launches"], vmm=vmm,
+                sub=sub, sub_kernels=sub_k, epochs=len(epochs), reprogrammed=n_rep)
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -769,6 +1109,8 @@ def main() -> int:
     serve = phase_serve(dep["model"], args.layers, gen)
     stamp("serving breakdown phase")
     phase_serve_breakdown(serve, gen)
+    stamp("continuous serving phase")
+    cont = phase_continuous(dep["model"], args.layers, gen)
     stamp("done")
 
     main_fwht, main_wv = k[("fwht", 32)], k[("wv_step", 32, True)]
@@ -786,9 +1128,20 @@ def main() -> int:
              bound_ms=main_wv["bound_ms"], bound_by=main_wv["bound_by"],
              library_ms=None),
     ]}
+    for entry in line["kernels"]:
+        entry["launches_continuous"] = cont["launches"][entry["name"]]
+        # The same kernel at phase 9's scrub shapes.
+        entry["scrub_case"] = [
+            {k: r[k] for k in ("case", "ms", "plain_ms", "bound_ms", "bound_by",
+                               "library_ms", "max_abs_err")}
+            for r in cont["sub_kernels"][entry["name"]]]
     for name, case, src_line in (("acim_vmm_tiled", "decode", 166),
                                  ("acim_vmm", "one tile", 230)):
         r = vmm[case]
+        tiled = case != "one tile"
+        cases = {c: o for c, o in vmm.items() if c != case and (o["tiles"] == 1) != tiled}
+        if tiled:
+            cases.update(cont["vmm"])
         line["kernels"].append(dict(
             name=name, route="cuda", source="src/repro_torch/kernels/csrc/acim_vmm.cu",
             replaces=f"src/repro/kernels/acim_vmm/acim_vmm.py:{src_line}",
@@ -796,11 +1149,12 @@ def main() -> int:
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
             shape=f"B={r['b']} T={r['tiles']}", adc_flips=r["flips"],
-            # The same kernel's other rows of phase 7 (route "raw" = f32).
+            launches_continuous=cont["launches"][name],
+            # The same kernel's other rows of phases 7 and 9 (route "raw" = f32).
             other_cases={c: dict(ms=o["ms"], bound_ms=o["bound_ms"], bound_by=o["bound_by"],
                                  plain_ms=o["plain_ms"], library_ms=o["library_ms"],
                                  max_abs_err=o["max_abs_err"], shape=f"B={o['b']} T={o['tiles']}")
-                         for c, o in vmm.items() if c != case and (o["tiles"] == 1) == (case == "one tile")}))
+                         for c, o in cases.items()}))
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 __all__ = ["params_from_numpy", "key_from_numpy", "tensor_from_numpy",
-           "deployed_from_numpy"]
+           "deployed_from_numpy", "cell_state_from_numpy"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
            "float32": torch.float32, "float64": torch.float64}
@@ -51,6 +51,11 @@ def key_from_numpy(key, device="cuda") -> torch.Tensor:
     return torch.from_numpy(k.astype(np.int64)).to(device)
 
 
+def _uids(st) -> np.ndarray | None:
+    u = st.get("uids") if isinstance(st, dict) else getattr(st, "uids", None)
+    return None if u is None else np.asarray(u, np.int64).copy()
+
+
 def deployed_from_numpy(tree: Any, arrays: dict[str, Any], wv_cfg=None,
                         cost=None, device="cuda"):
     """Carry the reference's `DeployedModel` across to the port.
@@ -63,7 +68,8 @@ def deployed_from_numpy(tree: Any, arrays: dict[str, Any], wv_cfg=None,
       arrays: leaf name (``['layers']['wq']``) -> mapping with the
         `ArrayState` fields ``g``, ``targets``, ``d2d``, ``scale`` (numpy),
         ``layout`` (mapping or object with ``k_in, m_out, n_cells,
-        slices, bc``), ``shape`` and ``dtype`` (numpy dtype or name).
+        slices, bc``), ``shape``, ``dtype`` (numpy dtype or name) and,
+        optionally, ``uids`` (the physical column uids, host numpy).
       wv_cfg, cost: the deployment's `WVConfig` / `CircuitCost`
         (defaults if None).
     """
@@ -93,8 +99,21 @@ def deployed_from_numpy(tree: Any, arrays: dict[str, Any], wv_cfg=None,
             layout=layout,
             shape=tuple(int(d) for d in field(st, "shape")),
             dtype=_DTYPES[np.dtype(field(st, "dtype")).name],
+            uids=_uids(st),
         )
     digital = {name: tensor_from_numpy(leaf, device)
                for name, leaf in flatten_with_names(tree) if name not in states}
     return DeployedModel(names=names_tree(tree), digital=digital, arrays=states,
                          wv_cfg=wv_cfg or WVConfig(), cost=cost or CircuitCost())
+
+
+def cell_state_from_numpy(state, device="cuda"):
+    """Carry the reference's lifetime `CellState` (numpy leaves, or any
+    object with its fields) across to the port's `lifetime.CellState`."""
+    from repro_torch.lifetime.drift import CellState
+
+    def field(name):
+        return state[name] if isinstance(state, dict) else getattr(state, name)
+
+    return CellState(**{f: tensor_from_numpy(field(f), device)
+                        for f in CellState._fields})

@@ -31,6 +31,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
 from repro_torch.quant import (
@@ -165,6 +166,10 @@ class ArrayState:
     `targets` are the intended integer levels, `d2d` the static per-cell
     step efficiency, `scale`/`layout`/`shape`/`dtype` invert the
     quantize/pack transform.  No field is written in place.
+    `uids` are the physical column uids (host numpy, one per `g` row):
+    ``uid // columns_per_tile`` is the tile a column lives on, which is
+    how the scrub's health maps (`obs.health`) attribute drift to
+    silicon without device work.
     """
 
     g: torch.Tensor              # (C, N) programmed analog levels, LSB
@@ -174,6 +179,7 @@ class ArrayState:
     layout: PackedLayout
     shape: tuple[int, ...]       # original leaf shape
     dtype: torch.dtype
+    uids: np.ndarray | None = None
 
     def materialize(self, dtype: torch.dtype | None = None) -> torch.Tensor:
         """Programmed conductances -> effective dense weight leaf.
@@ -266,6 +272,7 @@ class _LeafPlan:
             g=g, targets=self.cols, d2d=d2d, scale=self.scale,
             layout=self.layout, shape=tuple(self.leaf.shape),
             dtype=self.leaf.dtype,
+            uids=self.uid_base + np.arange(int(self.cols.shape[0]), dtype=np.int64),
         )
 
 

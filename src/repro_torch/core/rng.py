@@ -148,11 +148,28 @@ _ERFINV_LT5 = tuple(float(np.float32(c)) for c in _ERFINV_LT5)
 _ERFINV_GE5 = tuple(float(np.float32(c)) for c in _ERFINV_GE5)
 
 
+def _sqrt_f32(w: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 sqrt, as XLA's.
+
+    On the CPU, PyTorch's `sqrt` goes through a vector math library.  Its
+    first call after the process's first `log1p` sometimes runs one
+    2048-element chunk at about 3e-4 relative accuracy, and in erf^-1's
+    tail (|z| > 2.97) that moves the draw by up to 7e-4.  A float64 square
+    root refined by one Newton step is exact to float32 either way.
+    """
+    if w.device.type != "cpu":
+        return torch.sqrt(w)
+    w64 = w.to(torch.float64)
+    s = torch.sqrt(w64)
+    fine = torch.isfinite(s) & (s > 0)
+    return torch.where(fine, 0.5 * (s + w64 / s), s).to(torch.float32)
+
+
 def erfinv_f32(x: torch.Tensor) -> torch.Tensor:
     """float32 erf^-1 with XLA's polynomial and operation order."""
     w = -torch.log1p(x * -x)
     lt = w < 5.0
-    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    w = torch.where(lt, w - 2.5, _sqrt_f32(w) - 3.0)
     p = torch.where(lt, _ERFINV_LT5[0], _ERFINV_GE5[0])
     for a, b in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
         p = torch.where(lt, a, b) + p * w

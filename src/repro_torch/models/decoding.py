@@ -16,7 +16,7 @@ from typing import Any
 
 import torch
 
-from .attention import decode_attention
+from .attention import chunked_causal_attention, decode_attention
 from .config import ModelConfig
 from .layers import matmul
 from .transformer import (
@@ -29,7 +29,8 @@ from .transformer import (
     slice_layer,
 )
 
-__all__ = ["init_cache", "prefill", "decode_step", "write_cache_slot"]
+__all__ = ["init_cache", "prefill", "prefill_chunk", "decode_step",
+           "write_cache_slot"]
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -68,6 +69,73 @@ def prefill(params, batch: dict, cfg: ModelConfig, max_len: int | None = None,
         return last, cache
     cache["pos"].fill_(s - 1)
     return logits[:, -1], cache
+
+
+def prefill_chunk(params, cache: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
+                  start: int, slot: int, true_len: int | None = None,
+                  park_pos: int | None = None):
+    """Prefill ONE chunk of a prompt into batch row `slot` of the shared
+    decode cache (chunked prefill).
+
+    tokens: (1, C), the prompt slice [start, start + C), right-padded.
+    Each layer mirrors the whole-prompt layer body, with
+    `chunked_causal_attention(..., pos_offset=start)` over the prefix k/v
+    read back from the cache plus this chunk's k/v.  Decode steps that
+    run between chunks advance and write every row; `park_pos` (first
+    chunk) moves this row's position to `max_len`, so their writes fall
+    outside the cache and are dropped.  The final chunk (`true_len`
+    given) restores ``pos = true_len - 1`` and returns the logits of the
+    last real token, (1, V); other chunks return ``(None, cache)``.
+    The cache update is functional: the input cache is left as it was.
+
+    Dense attention stacks only, like padded `prefill`; C and `start`
+    must be multiples of both attention chunk sizes.
+    """
+    _check_dense(cfg)
+    c = tokens.shape[1]
+    for nm, cs in (("attn_chunk_q", cfg.attn_chunk_q),
+                   ("attn_chunk_kv", cfg.attn_chunk_kv)):
+        if c % cs or start % cs:
+            raise ValueError(
+                f"chunk [{start}, {start + c}) must align to {nm}={cs}, the "
+                "attention's chunk grid of the whole-prompt prefill")
+    x = embed_inputs(params, {"tokens": tokens}, cfg)
+    b = x.shape[0]
+    positions = start + torch.arange(c, device=x.device)[None, :]
+    lay = params["layers"]
+    ks, vs = [], []
+    for idx in range(cfg.n_layers):
+        pl = slice_layer(lay, idx)
+        q, k, v = _project_qkv(x, pl, cfg, positions)
+        if start > 0:
+            kf = torch.cat([cache["k"][idx, slot:slot + 1, :start], k], dim=1)
+            vf = torch.cat([cache["v"][idx, slot:slot + 1, :start], v], dim=1)
+        else:
+            kf, vf = k, v
+        attn = chunked_causal_attention(
+            q, kf, vf, chunk_q=cfg.attn_chunk_q, chunk_kv=cfg.attn_chunk_kv,
+            window=cfg.sliding_window, pos_offset=start)
+        x = x + matmul(attn.reshape(b, c, cfg.q_dim), pl["wo"])
+        ff, _ = _ffn(x, pl, cfg)
+        x = x + ff
+        ks.append(k)
+        vs.append(v)
+    new_cache = dict(cache)
+    for name, new in (("k", ks), ("v", vs)):
+        leaf = cache[name].clone()
+        leaf[:, slot, start:start + c] = torch.stack(new)[:, 0].to(leaf.dtype)
+        new_cache[name] = leaf
+    if true_len is None and park_pos is None:
+        return None, new_cache
+    pos = cache["pos"].clone()
+    # A fill, not an indexed assignment of a Python scalar (which copies
+    # from the host).
+    pos.narrow(0, slot, 1).fill_(true_len - 1 if true_len is not None else park_pos)
+    new_cache["pos"] = pos
+    if true_len is None:
+        return None, new_cache
+    logits = output_logits(params, x, cfg)
+    return logits[:, true_len - 1 - start], new_cache
 
 
 def write_cache_slot(shared: dict, single: dict, slot: int) -> dict:

@@ -1,4 +1,51 @@
-# Telemetry of the port: so far only the host-side counter registry and
-# the counted device->host fetch (`obs.metrics`).
-from . import metrics  # noqa: F401
-from .metrics import registry  # noqa: F401
+"""Telemetry of the port: counters, digests, trace spans, the energy
+ledger and per-tile health maps.
+
+* `obs.metrics`: the host-side counter registry and `fetch`, the
+  counted device->host chokepoint (one call = one copy);
+* `obs.digest`: fixed-bucket streaming histograms (`StreamingDigest`,
+  accumulated on the device or the host) and the `digests` registry;
+* `obs.trace`: host-side Chrome/Perfetto trace-event spans;
+* `obs.ledger`: per-phase modeled energy/latency (`obs.charge`);
+* `obs.health`: per-tile health maps and gauges.
+
+The rule: spans and charges are host-side only, and device values reach
+the host only on syncs the hot path already makes.  `reset_all()`
+starts a fresh run in-process.
+"""
+
+from __future__ import annotations
+
+from . import digest, health, ledger, metrics, trace
+from .digest import StreamingDigest, digests, rank_quantile
+from .health import health as health_registry
+from .ledger import charge
+from .metrics import registry
+from .trace import instant, span, tracer
+
+__all__ = [
+    "digest",
+    "health",
+    "ledger",
+    "metrics",
+    "trace",
+    "charge",
+    "StreamingDigest",
+    "digests",
+    "rank_quantile",
+    "health_registry",
+    "registry",
+    "instant",
+    "span",
+    "tracer",
+    "reset_all",
+]
+
+
+def reset_all() -> None:
+    """Fresh telemetry state: events, charges, counters, digests, health."""
+    trace.reset()
+    ledger.reset()
+    metrics.reset()
+    digest.reset()
+    health_registry.reset()

@@ -1,7 +1,8 @@
 """Host-side counter registry and the counted device->host fetch.
 
-Named float counters (`pipeline.compiles`, `pipeline.host_syncs`, ...)
-that the pipeline's contracts are asserted on.  `fetch(tree, counter=...)`
+Named float counters (`pipeline.compiles`, `pipeline.host_syncs`,
+`serve.decode_tokens`, `lifetime.health_syncs`, ...) that the contracts
+are asserted on; they are not gated on the obs enable flag.  `fetch(tree, counter=...)`
 is the counted transfer chokepoint: one call = one device->host copy =
 one bump of its counter.
 """
@@ -12,7 +13,8 @@ from typing import Any
 
 import torch
 
-__all__ = ["MetricRegistry", "registry", "fetch", "inc", "value", "reset"]
+__all__ = ["MetricRegistry", "registry", "fetch", "inc", "value", "snapshot",
+           "reset"]
 
 
 class MetricRegistry:
@@ -24,8 +26,16 @@ class MetricRegistry:
     def inc(self, name: str, delta: float = 1.0) -> None:
         self._counts[name] = self._counts.get(name, 0.0) + float(delta)
 
+    def fold(self, values: dict[str, Any], prefix: str = "") -> None:
+        """Add a mapping of fetched metric values (numpy/python scalars)."""
+        for k, v in values.items():
+            self.inc(prefix + k, float(v))
+
     def value(self, name: str) -> float:
         return self._counts.get(name, 0.0)
+
+    def snapshot(self) -> dict[str, float]:
+        return dict(self._counts)
 
     def reset(self, prefix: str | None = None) -> None:
         """Zero all counters, or only those under `prefix`."""
@@ -89,6 +99,10 @@ def inc(name: str, delta: float = 1.0) -> None:
 
 def value(name: str) -> float:
     return registry.value(name)
+
+
+def snapshot() -> dict[str, float]:
+    return registry.snapshot()
 
 
 def reset(prefix: str | None = None) -> None:

@@ -54,7 +54,10 @@ def pack_columns(
     kp = layout.k_padded
     cells = cells.reshape(kp // n_cells, n_cells, m_out, 2, k_slices)
     cells = torch.movedim(cells, 1, -1)               # (Kp/N, M, 2, S, N)
-    return cells.reshape(-1, n_cells).to(torch.float32), layout
+    # Contiguous even where the reshape is a view (one column group): the
+    # kernels that later read these targets (`fwht` in a scrub's verify
+    # sweep) take contiguous operands only.
+    return cells.reshape(-1, n_cells).to(torch.float32).contiguous(), layout
 
 
 def unpack_columns(columns: torch.Tensor, layout: PackedLayout) -> torch.Tensor:

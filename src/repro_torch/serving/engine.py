@@ -20,9 +20,10 @@ from typing import Any
 import torch
 
 from repro_torch.core import rng
-from repro_torch.models import ModelConfig, decode_step, prefill
+from repro_torch.models import ModelConfig, decode_step, prefill, prefill_chunk
 
-__all__ = ["make_prefill_step", "make_decode_step", "ServeEngine"]
+__all__ = ["make_prefill_step", "make_prefill_chunk_step", "make_decode_step",
+           "ServeEngine"]
 
 
 def make_prefill_step(cfg: ModelConfig, max_len: int | None = None):
@@ -30,6 +31,22 @@ def make_prefill_step(cfg: ModelConfig, max_len: int | None = None):
         return prefill(params, batch, cfg, max_len=max_len)
 
     return prefill_step
+
+
+def make_prefill_chunk_step(cfg: ModelConfig, *, start: int, final: bool,
+                            park_pos: int | None = None):
+    """Step function for ONE chunk of a chunked prefill at offset `start`
+    (one per (start, final) pair); the slot and the true length are
+    arguments, so any request in any slot reuses it."""
+
+    def chunk_step(params, cache, tokens, true_len: int, slot: int):
+        return prefill_chunk(
+            params, cache, tokens, cfg, start=start, slot=slot,
+            true_len=true_len if final else None,
+            park_pos=park_pos if start == 0 else None,
+        )
+
+    return chunk_step
 
 
 def make_decode_step(cfg: ModelConfig, sample: bool = False):

@@ -397,7 +397,8 @@ def carry_deployment(jmodel):
     arrays = {
         name: dict(g=np.asarray(st.g), targets=np.asarray(st.targets),
                    d2d=np.asarray(st.d2d), scale=np.asarray(st.scale),
-                   layout=st.layout, shape=st.shape, dtype=st.dtype)
+                   layout=st.layout, shape=st.shape, dtype=st.dtype,
+                   uids=st.uids)
         for name, st in jmodel.arrays.items()
     }
     tree = jax.tree.map(np.asarray, jmodel.materialize())

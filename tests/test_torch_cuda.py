@@ -14,11 +14,15 @@ sum of whole code flips, under 1% of them (`tests/acim_flips.py`: the
 kernel sums each partial sum in another order than cuBLAS).  The
 `acim_vmm` cases reach both grid plans (split over tiles at B = 40 with
 T = 8, 16 and 24; one block per B- and M-block at B = 1280 and at one
-tile), both product routes (binary DAC planes through the bf16 x 3
+tile; B = 160 and 320, a continuous-batching admission or prefill chunk
+of 16 or 32 tokens at 10 DAC planes, split over tiles), both product routes (binary DAC planes through the bf16 x 3
 tensor-core products, raw activations through f32 FMAs, and a leaf that
 mixes them), ragged B, R and M (M % 4 != 0 and planes at an unaligned
 offset take the 4-byte copies), and a captured CUDA graph, whose replay
-must equal the eager call bitwise.
+must equal the eager call bitwise.  The continuous-batching scheduler
+serves a tiny deployment on the card with its dispatches under
+`torch.cuda.set_sync_debug_mode("error")`: one host sync per decode
+step, no hidden one, and the mode restored.
 """
 
 import numpy as np
@@ -113,7 +117,8 @@ def _acim_inputs(cuda, seed, b, n_tiles, s, r, m, noise):
                                            (40, 16, 128, 1024), (40, 24, 128, 1024),
                                            (40, 8, 128, 3072), (1280, 8, 128, 3072),
                                            (40, 8, 128, 201), (97, 5, 36, 130),
-                                           (10, 8, 128, 256), (20, 16, 128, 192)])
+                                           (10, 8, 128, 256), (20, 16, 128, 192),
+                                           (160, 8, 128, 3072), (320, 8, 128, 3072)])
 @pytest.mark.parametrize("adc_bits", [None, 10])
 @pytest.mark.parametrize("noise", [False, True])
 def test_acim_vmm_tiled_kernel_vs_plain(cuda, b, n_tiles, r, m, adc_bits, noise):
@@ -225,3 +230,45 @@ def test_acim_vmm_kernel_replays_in_cuda_graph(cuda, b, n_tiles):
     graph.replay()
     torch.cuda.synchronize()
     torch.testing.assert_close(captured, eager, rtol=0, atol=0)
+
+
+@pytest.mark.requires_cuda
+def test_scheduler_dispatch_has_no_hidden_sync(cuda):
+    """Analog continuous batching with a lifetime scrub between decode
+    steps, on the card: every dispatch runs with sync debugging set to
+    "error", so a hidden device->host sync would raise here."""
+    from repro_torch.cim import CIMConfig, CIMExecutor
+    from repro_torch.configs.qwen3_0_6b import SMOKE_CONFIG
+    from repro_torch.core import WVConfig, WVMethod, rng
+    from repro_torch.core.programmer import deploy_arrays
+    from repro_torch.lifetime import LifetimeSimulator
+    from repro_torch.models import init_params
+    from repro_torch.serving import ContinuousScheduler, ServeEngine, poisson_requests
+
+    cfg = SMOKE_CONFIG
+    params = init_params(0, cfg, device="cuda")
+    model, _ = deploy_arrays(rng.PRNGKey(1, device="cuda"), params,
+                             WVConfig(method=WVMethod.HARP, max_fine_iters=8,
+                                      max_coarse_iters=4), device="cuda")
+    ex = CIMExecutor(model, CIMConfig(dac_bits=6, adc_bits=10, sigma_read_lsb=0.2),
+                     rng.PRNGKey(2, device="cuda"))
+    sim = LifetimeSimulator(rng.PRNGKey(3, device="cuda"), model,
+                            traffic_fn=ex.drain_reads)
+    epochs = []
+    sched = ContinuousScheduler(
+        ServeEngine(cfg, executor=ex, temperature=0.7), n_slots=3, max_len=64,
+        key=rng.PRNGKey(4, device="cuda"), prefill_chunk_tokens=16,
+        maintenance_fn=lambda: epochs.append(sim.step_epoch(3600.0, max_leaves=2)),
+        maintenance_every=2)
+    sched.warmup(prompt_range=(3, 40))
+    warm = dict(sched.trace_counts)
+    recs = sched.run(poisson_requests(0, 6, rate=1.0, vocab=cfg.vocab_size,
+                                      prompt_lens=(3, 40), max_new=(3, 8)))
+    assert len(recs) == 6 and sched.trace_counts == warm
+    assert sched.host_syncs == sched.decode_steps > 0 and len(epochs) > 0
+    assert torch.cuda.get_sync_debug_mode() == 0
+    x = torch.ones(1, device=cuda)
+    with pytest.raises(RuntimeError):
+        with sched._no_sync():
+            x.item()
+    assert torch.cuda.get_sync_debug_mode() == 0

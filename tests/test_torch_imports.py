@@ -38,3 +38,18 @@ def test_port_module_imports_without_cuda(path):
     rel = path.relative_to(PORT.parent).with_suffix("")
     parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
     importlib.import_module(".".join(parts))
+
+
+# The modules of the continuous-batching and lifetime slice: each is
+# among the files checked above (a deleted or renamed one fails here).
+SLICE_MODULES = (
+    "serving/scheduler.py", "serving/engine.py", "models/decoding.py",
+    "lifetime/__init__.py", "lifetime/drift.py", "lifetime/refresh.py",
+    "lifetime/service.py", "obs/__init__.py", "obs/digest.py", "obs/trace.py",
+    "obs/ledger.py", "obs/health.py", "obs/metrics.py", "convert.py",
+)
+
+
+@pytest.mark.parametrize("rel", SLICE_MODULES)
+def test_slice_module_is_checked(rel):
+    assert PORT / rel in FILES

@@ -104,3 +104,21 @@ def test_erfinv_over_all_mantissas_within_2_ulp():
     assert _ulp(want, got) <= 2
     # torch.erfinv rounds differently: the port must not use it.
     assert _ulp(want, torch.erfinv(torch.from_numpy(u)).numpy()) > 2
+
+
+def test_erfinv_tail_sqrt_correctly_rounded():
+    """The tail branch's square root is the correctly rounded float32 one
+    (XLA's), for every w >= 5 that `normal` can feed erf^-1: on the CPU
+    the port does not trust PyTorch's vectorized `sqrt`, whose first call
+    after a `log1p` can run a chunk of it at about 3e-4 accuracy."""
+    m = np.arange(1 << 23, dtype=np.uint32)
+    f = (m | np.uint32(0x3F800000)).view(np.float32) - np.float32(1.0)
+    lo = np.nextafter(np.float32(-1.0), np.float32(0.0))
+    x = torch.from_numpy(np.maximum(lo, f * (np.float32(1.0) - lo) + lo))
+    w = -torch.log1p(x * -x)
+    w = w[torch.isfinite(w) & (w >= 5.0)]
+    assert w.numel() > 1000
+    want = np.sqrt(w.numpy())
+    np.testing.assert_array_equal(trng._sqrt_f32(w).numpy(), want)
+    np.testing.assert_array_equal(trng._sqrt_f32(torch.tensor([0.0, 4.0, float("inf")])).numpy(),
+                                  np.array([0.0, 2.0, np.inf], np.float32))
