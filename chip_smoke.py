@@ -67,7 +67,27 @@ CUDA toolkit.  Phases, each of which fails the run:
    `fwht` on the verify sweeps' own operands (conductances, targets and
    comparator signs of the largest leaf and of a norm-scale leaf) are
    held and timed as in phases 3 and 7, and the parts of a decode step
-   and of a scrub epoch are timed.
+   and of a scrub epoch are timed;
+10. faulty silicon: `benchmarks/fault_tolerance.py`'s highest fault rate
+   (`FAULTS`: 2% of cells stuck or weak, a lognormal per-tile rate, 64
+   columns per tile) with HARP and its 80-pulse give-up budget.  A
+   zero-fault guard at 1 layer must program bitwise what a plain deploy
+   programs.  Then phase 5's params and key deploy in two arms, "none"
+   (faults and give-up) and "remap" (25% spare columns and fault-aware
+   placement): each in one host sync (CUDA sync debugging sees only the
+   report's fetch and the placement probe), with 3 `fwht` and 1
+   `wv_step` launches per bucket-iteration over both passes' buckets;
+   "none" must give up on cells, "remap" must remap columns and come
+   closer to phase 5's clean weights, pin every stuck cell and keep its
+   remap tables permutations.  `wv_step` is held on a faulty bucket's
+   operands (weak cells, fault-scaled efficiency), `fwht` on the spare
+   pass's targets, `acim_vmm_tiled` on a remapped leaf, the fault
+   sampler and the spare ranking on the card against the CPU.  The
+   remap arm is served (ideal converters against its digital forward;
+   then prefill + 8 noisy decode steps of 28 launches each), scrubbed
+   for two epochs (no inactive row flagged or re-programmed, `wv_step`
+   on the re-program), and converter offsets are calibrated over the
+   w_down leaf's columns (residual spread under 0.1 of the offsets').
 
 The line before the last is a JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -76,6 +96,7 @@ the last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import statistics
@@ -91,6 +112,11 @@ C_DEPLOY = 1 << 18               # the deploy's bucket size (columns)
 SEED = 0                         # weights, kernel inputs
 REPS = 20                        # calls per timing
 AGING_S = 3600.0                 # phase 9: device age added per scrub epoch
+# Phase 10: `benchmarks/fault_tolerance.py`'s highest fault rate,
+# `_fault_cfg(0.02)`, its give-up budget and its remap arm.
+FAULTS = dict(p_stuck_hrs=0.01, p_stuck_lrs=0.005, p_weak=0.005,
+              sigma_tile_fault_dec=0.5, columns_per_tile=64, tiles_per_chip=16)
+GIVE_UP_PULSES = 80
 
 
 def _nvidia_smi() -> str:
@@ -193,7 +219,6 @@ def phase_fwht(n: int, gen, c: int = C_DEPLOY, x=None) -> dict:
 def phase_wv_step(n: int, ternary: bool, gen, c: int = C_DEPLOY) -> dict:
     import torch
 
-    from repro_torch.kernels.wv_step import ops, ref
     from repro_torch.kernels.wv_step.ref import WVCellParams
 
     dev = "cuda"
@@ -213,6 +238,18 @@ def phase_wv_step(n: int, ternary: bool, gen, c: int = C_DEPLOY) -> dict:
         ternary=ternary, fine_step=0.25, max_pulses=16.0, g_max=7.0,
         nonlinearity=0.35, reset_asymmetry=0.85, nmap_sqrt_pulses=True,
     )
+    return _wv_case(args, p)
+
+
+def _wv_case(args, p) -> dict:
+    """Hold `wv_step` against its plain version on the operands `args`
+    (discrete outputs exactly, g within 1e-5) and time both."""
+    import torch
+
+    from repro_torch.kernels.wv_step import ops, ref
+
+    c, n = args[0].shape
+    ternary = p.ternary
     got = ops.wv_cell_update(*args, p)
     want = ref.wv_cell_update(*args, p)
     torch.cuda.synchronize()
@@ -336,7 +373,8 @@ def phase_deploy(layers: int) -> dict:
           f"correlation with the written weights {corr:.5f}")
     if not corr > 0.95:
         raise AssertionError(f"{name}: programmed weights correlate {corr} with the written")
-    return dict(wall_s=wall, launches=launches, report=report, model=model)
+    return dict(wall_s=wall, launches=launches, report=report, model=model,
+                params=params, key=key)
 
 
 def phase_breakdown() -> None:
@@ -537,6 +575,42 @@ def _print_vmm(w, cfg, out: dict) -> None:
               f"{rr['max_abs_err_adc']:.3g} with {rr['flips']} of {rr['n']} codes flipped")
 
 
+def _ideal_check(model, cfg, tokens, what: str) -> None:
+    """Ideal converters in float32 reproduce the digital forward of the
+    same arrays' `materialize()`: prefill logits within atol 2e-3 + rtol
+    1e-3 (float32 sums over up to 3072 rows in another association), and
+    greedy tokens equal over 8 decode steps."""
+    import torch
+
+    from repro_torch.cim import CIMConfig, CIMExecutor
+    from repro_torch.core import rng
+    from repro_torch.core.programmer import fill_names
+    from repro_torch.models import forward
+    from repro_torch.serving import ServeEngine
+
+    cfg32 = cfg.replace(dtype=torch.float32)
+    digital = fill_names(model.names, {
+        **model.digital,
+        **{n: st.materialize(dtype=torch.float32) for n, st in model.arrays.items()}})
+    ideal = CIMExecutor(model, CIMConfig(dac_bits=None, adc_bits=None,
+                                         sigma_read_lsb=0.0),
+                        rng.PRNGKey(SEED + 2, device="cuda"))
+    la, _, _ = forward(ideal.params(), {"tokens": tokens}, cfg32)
+    ld, _, _ = forward(digital, {"tokens": tokens}, cfg32)
+    err = float((la - ld).abs().max())
+    scale = float(ld.abs().max())
+    print(f"{what} ideal check (f32, {ideal.summary()['analog_leaves']} analog leaves): "
+          f"prefill logits max |analog - digital| = {err:.3g} (logits up to {scale:.3g})")
+    if not torch.allclose(la, ld, rtol=1e-3, atol=2e-3):
+        raise AssertionError(f"{what}: ideal analog logits differ from digital by {err}")
+    ta = ServeEngine(cfg32, executor=ideal).generate(tokens, max_new=9)
+    td = ServeEngine(cfg32, digital).generate(tokens, max_new=9)
+    if not torch.equal(ta, td):
+        raise AssertionError(f"{what}: ideal analog greedy tokens {ta.tolist()} != "
+                             f"digital {td.tolist()}")
+    print(f"  greedy tokens over 8 decode steps equal: {ta[0].tolist()} ...")
+
+
 def phase_serve(model, layers: int, gen) -> dict:
     """Analog serving of the phase-5 deployment through `CIMExecutor` and
     `ServeEngine` at full width, `layers` deep.
@@ -554,9 +628,7 @@ def phase_serve(model, layers: int, gen) -> dict:
     from repro_torch.cim import CIMConfig, CIMExecutor, planes_per_token
     from repro_torch.configs.qwen3_0_6b import CONFIG
     from repro_torch.core import rng
-    from repro_torch.core.programmer import fill_names
     from repro_torch.kernels.acim_vmm import ops as vmm_ops
-    from repro_torch.models import forward
     from repro_torch.serving import ServeEngine
 
     cfg = CONFIG.replace(n_layers=layers)
@@ -564,29 +636,7 @@ def phase_serve(model, layers: int, gen) -> dict:
     tokens = torch.randint(0, cfg.vocab_size, (b, s), device="cuda", generator=gen,
                            dtype=torch.int32)
 
-    # Ideal converters, float32: analog == digital on the same arrays.
-    cfg32 = cfg.replace(dtype=torch.float32)
-    digital = fill_names(model.names, {
-        **model.digital,
-        **{n: st.materialize(dtype=torch.float32) for n, st in model.arrays.items()}})
-    ideal = CIMExecutor(model, CIMConfig(dac_bits=None, adc_bits=None,
-                                         sigma_read_lsb=0.0),
-                        rng.PRNGKey(SEED + 2, device="cuda"))
-    la, _, _ = forward(ideal.params(), {"tokens": tokens}, cfg32)
-    ld, _, _ = forward(digital, {"tokens": tokens}, cfg32)
-    err = float((la - ld).abs().max())
-    scale = float(ld.abs().max())
-    print(f"serve ideal check (f32, {ideal.summary()['analog_leaves']} analog leaves): "
-          f"prefill logits max |analog - digital| = {err:.3g} (logits up to {scale:.3g})")
-    if not torch.allclose(la, ld, rtol=1e-3, atol=2e-3):
-        raise AssertionError(f"ideal analog logits differ from digital by {err}")
-    ta = ServeEngine(cfg32, executor=ideal).generate(tokens, max_new=9)
-    td = ServeEngine(cfg32, digital).generate(tokens, max_new=9)
-    if not torch.equal(ta, td):
-        raise AssertionError(f"ideal analog greedy tokens {ta.tolist()} != digital "
-                             f"{td.tolist()}")
-    print(f"  greedy tokens over 8 decode steps equal: {ta[0].tolist()} ...")
-    del digital, ideal, la, ld
+    _ideal_check(model, cfg, tokens, "serve")
 
     # Noisy serving, the serve_lm defaults, bf16: the main path.
     cim = CIMConfig(dac_bits=6, adc_bits=10, sigma_read_lsb=0.2)
@@ -1047,6 +1097,442 @@ def phase_continuous(model, layers: int, gen) -> dict:
                 sub=sub, sub_kernels=sub_k, epochs=len(epochs), reprogrammed=n_rep)
 
 
+def _sync_counted(fn):
+    """(fn(), the syncs it made, where): `fn` runs with CUDA sync
+    debugging set to "warn", which warns on every synchronizing call;
+    `where` names the innermost three Python frames of each."""
+    import traceback
+    import warnings
+
+    import torch
+
+    where = []
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        # Setting the mode warns once that it is a prototype; skip that.
+        if "synchronizing" in str(message) and "prototype" not in str(message):
+            frames = [f for f in traceback.extract_stack()[:-1]
+                      if Path(f.filename).name != "warnings.py"][-3:]
+            where.append(" < ".join(f"{Path(f.filename).parent.name}/"
+                                    f"{Path(f.filename).name}:{f.lineno}"
+                                    for f in reversed(frames)))
+
+    old = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(old)
+    return out, len(where), where
+
+
+def _threshold_ties(key, uids, shape, fc, dev):
+    """Cells whose classifying uniform lies within 1e-6 (relative) of one
+    of `sample_fault_map`'s thresholds, recomputed on the CPU: only there
+    may the card classify a cell otherwise (the tile multiplier is an
+    `exp` of a normal draw, whose last bits may differ)."""
+    import torch
+
+    from repro_torch.core import device as dev_mod, rng
+
+    key, uids = key.cpu(), uids.cpu()
+    fkey = rng.fold_in(key, dev_mod._FAULT_SALT)
+    k_kind, _ = rng.split(rng.fold_col_keys(fkey, uids))
+    u = rng.uniform(k_kind, shape)
+    mult = dev_mod.tile_quality(key, dev_mod.tile_ids(uids, fc), fc)[:, None]
+    near = torch.zeros(shape, dtype=torch.bool)
+    p = torch.zeros_like(mult)
+    for rate in (fc.p_stuck_hrs, fc.p_stuck_lrs, fc.p_weak, fc.p_exhausted):
+        p = p + rate * mult
+        near |= (u - p).abs() <= 1e-6 * p
+    return near
+
+
+def phase_fault_guard() -> dict:
+    """Zero-fault guard, at 1 layer: the give-up budget and an all-zero
+    `FaultConfig` program bitwise what a plain HARP deploy of the same
+    params and key programs, in one host sync, with no remap.  HARP
+    applies at most one fine pulse per iteration, so no cell can spend
+    the 80-pulse budget within 50 iterations: any gave-up cell is one the
+    reference counts as unconverged at the iteration cap."""
+    import torch
+
+    from repro_torch.configs.qwen3_0_6b import CONFIG
+    from repro_torch.core import FaultConfig, WVConfig, WVMethod, pipeline, rng
+    from repro_torch.core.programmer import deploy_arrays
+    from repro_torch.models import init_params
+
+    params = init_params(SEED, CONFIG.replace(n_layers=1), device="cuda")
+    key = rng.PRNGKey(SEED + 1, device="cuda")
+    wv = WVConfig(method=WVMethod.HARP)
+    t0 = time.perf_counter()
+    (plain, plain_rep), plain_syncs, plain_where = _sync_counted(
+        lambda: deploy_arrays(key, params, wv, device="cuda"))
+    pipeline.reset_counters()
+    guard, rep = deploy_arrays(key, params, wv.replace(give_up_pulses=GIVE_UP_PULSES),
+                               fault_cfg=FaultConfig(), device="cuda")
+    syncs = pipeline.host_sync_count()
+    print(f"  the plain deploy: sync debugging saw {plain_syncs} at {plain_where}")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    differ = [n for n, st in plain.arrays.items()
+              if not (torch.equal(guard.arrays[n].g, st.g)
+                      and torch.equal(guard.arrays[n].materialize(), st.materialize()))]
+    print(f"faults: zero-fault guard (1 layer, {rep.num_columns} columns): give_up_pulses="
+          f"{GIVE_UP_PULSES} + FaultConfig() vs plain HARP: {len(plain.arrays) - len(differ)} "
+          f"of {len(plain.arrays)} leaves bitwise equal; host syncs {syncs}; gave-up cells "
+          f"{rep.total_gave_up_cells:.0f} (retry pulses {rep.total_retry_pulses:.0f}); "
+          f"remapped {rep.remapped_columns}; rms {rep.rms_cell_error_lsb:.6f} vs "
+          f"{plain_rep.rms_cell_error_lsb:.6f}; both deploys {wall:.2f} s")
+    if differ:
+        raise AssertionError(f"zero-fault guard differs from the plain deploy in {differ}")
+    if syncs != 1 or rep.remapped_columns != 0:
+        raise AssertionError(f"zero-fault guard: {syncs} host syncs, "
+                             f"{rep.remapped_columns} remapped columns")
+    if any(st.fault is not None or st.remap is not None for st in guard.arrays.values()):
+        raise AssertionError("zero-fault guard carries a fault map or a remap table")
+    if rep.total_retry_pulses > wv.max_fine_iters * rep.total_gave_up_cells:
+        raise AssertionError("zero-fault guard: a cell spent more fine pulses than the "
+                             "iteration cap allows")
+    return dict(gave_up=rep.total_gave_up_cells, wall_s=wall)
+
+
+def _fault_arm(key, params, wv, fc, remap_cfg, clean: dict, n_weights: int,
+               what: str) -> dict:
+    """One faulty deploy (phase 10's arm `what`), with every kernel count
+    set to 0 just before and read just after, and its contracts: one
+    host sync (the report's; CUDA sync debugging also sees the placement
+    probe), exactly 3 `fwht` and 1 `wv_step` launches per bucket-iteration
+    over the primary and spare passes' buckets."""
+    import torch
+
+    from repro_torch.core import pipeline
+    from repro_torch.core.programmer import deploy_arrays
+    from repro_torch.kernels.fwht import ops as fwht_ops
+    from repro_torch.kernels.wv_step import ops as wv_ops
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fwht_ops.launches = wv_ops.launches = 0
+    pipeline.reset_counters()
+    t0 = time.perf_counter()
+    (model, rep), dbg_syncs, dbg_where = _sync_counted(lambda: deploy_arrays(
+        key, params, wv, fault_cfg=fc, remap_cfg=remap_cfg, device="cuda"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"fwht": fwht_ops.launches, "wv_step": wv_ops.launches}
+    syncs = pipeline.host_sync_count()
+    peak_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
+    prim = sum(int(st.targets.shape[0]) if st.remap is None else int(st.remap.perm.shape[0])
+               for st in model.arrays.values())
+    spare = sum(int(st.targets.shape[0]) for st in model.arrays.values()) - prim
+    buckets = len(pipeline.bucket_sizes(prim)) + (
+        len(pipeline.bucket_sizes(spare)) if spare else 0)
+    num = sum(float(((st.materialize(dtype=torch.float32) - clean[n]) ** 2).sum())
+              for n, st in model.arrays.items())
+    wmse = num / n_weights
+    probe = int(remap_cfg is not None and remap_cfg.placement)
+    print(f"  arm {what}: {prim} primary + {spare} spare columns in {buckets} buckets; "
+          f"wall {wall:.2f} s; peak {peak_gib:.2f} GiB above the {base / 2**30:.2f} GiB "
+          f"held; host syncs {syncs} (sync debugging saw {dbg_syncs} at {dbg_where}, "
+          f"the placement probe {probe}); launches fwht={launches['fwht']} wv_step={launches['wv_step']}")
+    print(f"    gave-up cells {rep.total_gave_up_cells:.0f}, retry pulses "
+          f"{rep.total_retry_pulses:.0f}, remapped columns {rep.remapped_columns}, rms cell "
+          f"error {rep.rms_cell_error_lsb:.6f} LSB, mean iterations "
+          f"{rep.mean_iterations:.4f}, weight MSE vs the clean deploy {wmse:.6e}")
+    per_bucket_iter = buckets * wv.max_fine_iters
+    if launches["fwht"] != 3 * per_bucket_iter or launches["wv_step"] != per_bucket_iter:
+        raise AssertionError(f"arm {what}: fwht {launches['fwht']}x, wv_step "
+                             f"{launches['wv_step']}x; HARP needs 3 and 1 per "
+                             f"bucket-iteration ({per_bucket_iter})")
+    if syncs != 1 or dbg_syncs != 1 + probe:
+        raise AssertionError(f"arm {what}: {syncs} counted host syncs, {dbg_syncs} seen by "
+                             f"sync debugging (expected 1 and {1 + probe})")
+    return dict(model=model, report=rep, launches=launches, wmse=wmse)
+
+
+def _check_remapped(model) -> int:
+    """Every stuck cell sits exactly at its `stuck_g`; each leaf's `perm`
+    maps onto distinct physical rows and `active` is exactly its image.
+    Returns the stuck cells checked."""
+    import torch
+
+    n_stuck = 0
+    for name, st in model.arrays.items():
+        f = st.fault
+        if not bool(torch.equal(torch.where(f.stuck, st.g, 0.0),
+                                torch.where(f.stuck, f.stuck_g, 0.0))):
+            raise AssertionError(f"{name}: a stuck cell is off its pinned level")
+        n_stuck += int(f.stuck.sum())
+        c, rows = int(st.remap.perm.shape[0]), int(st.g.shape[0])
+        perm = st.remap.perm
+        image = torch.zeros(rows, dtype=torch.bool, device=perm.device).index_fill(0, perm, True)
+        if not (int(torch.unique(perm).numel()) == c and int(perm.min()) >= 0
+                and int(perm.max()) < rows and torch.equal(image, st.remap.active)):
+            raise AssertionError(f"{name}: the remap table is not a permutation onto "
+                                 f"its active rows")
+    return n_stuck
+
+
+def phase_faults(dep: dict, clean: dict, layers: int, gen) -> dict:
+    """Phase 10: deploy, serve and scrub qwen3-0.6b on faulty silicon.
+
+    `benchmarks/fault_tolerance.py`'s highest fault rate (`FAULTS`), HARP
+    with its give-up budget, on phase 5's params and key, in two arms:
+    "none" (faults and give-up) and "remap" (spares and fault-aware
+    placement), each against phase 5's clean weights (`clean`, taken
+    before phase 9's scrub moved them).  Then the kernels at this path's
+    operands, the remapped deployment served (ideal converters against
+    its digital forward, then `serve_lm`'s noisy defaults for 8 decode
+    steps), two scrub epochs on it, and converter offset calibration at
+    `benchmarks/readout_sweep.py`'s settings over the w_down leaf's
+    column count.
+    """
+    import numpy as np
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.cim import CIMConfig, CIMExecutor, build_weight
+    from repro_torch.configs.qwen3_0_6b import CONFIG
+    from repro_torch.core import FaultConfig, NoiseConfig, WVConfig, WVMethod, pipeline
+    from repro_torch.core import device as dev_mod, remap, rng
+    from repro_torch.core.programmer import flatten_with_names
+    from repro_torch.core.wv import _characterized_coarse_pulses, verify_aggregate
+    from repro_torch.kernels.acim_vmm import ops as vmm_ops
+    from repro_torch.kernels.fwht import ops as fwht_ops
+    from repro_torch.kernels.wv_step import ops as wv_ops
+    from repro_torch.kernels.wv_step.ref import WVCellParams
+    from repro_torch.lifetime import (
+        DriftConfig,
+        LifetimeSimulator,
+        RefreshConfig,
+        RefreshPolicy,
+    )
+    from repro_torch.readout import calibrate_offsets, for_wv_method, sample_col_offsets
+    from repro_torch.serving import ServeEngine
+
+    cfg = CONFIG.replace(n_layers=layers)
+    params, key = dep["params"], dep["key"]
+    fc = FaultConfig(**FAULTS)
+    wv = WVConfig(method=WVMethod.HARP, give_up_pulses=GIVE_UP_PULSES)
+    n_weights = sum(int(t.numel()) for _, t in flatten_with_names(params))
+    print(f"faults: qwen3-0.6b layers={layers} on faulty silicon ({fc}), HARP with "
+          f"give_up_pulses={GIVE_UP_PULSES}, on phase 5's params and key")
+    none = _fault_arm(key, params, wv, fc, None, clean, n_weights, "none")
+    if not none["report"].total_gave_up_cells > 0:
+        raise AssertionError("arm none: the give-up path never fired")
+    del none["model"]
+    torch.cuda.empty_cache()
+    rcfg = remap.RemapConfig(spare_frac=0.25, placement=True)
+    arm = _fault_arm(key, params, wv, fc, rcfg, clean, n_weights, "remap")
+    model, rep = arm["model"], arm["report"]
+    if not rep.remapped_columns > 0:
+        raise AssertionError("arm remap: the remap path never fired")
+    if not arm["wmse"] < none["wmse"]:
+        raise AssertionError(f"remap's weight MSE {arm['wmse']} is not below none's "
+                             f"{none['wmse']}")
+    n_stuck = _check_remapped(model)
+    print(f"    {n_stuck} stuck cells all at their pinned level; every leaf's perm is a "
+          f"permutation onto distinct rows and active is its image; weight MSE remap / "
+          f"none = {arm['wmse'] / none['wmse']:.4f}")
+
+    # ---- the kernels at this path's operands (the w_down leaf) ------------
+    wd = "['layers']['w_down']"
+    st = model.arrays[wd]
+    n = wv.n_cells
+    c_prim = int(st.remap.perm.shape[0])
+    c = min(C_DEPLOY, c_prim)
+    uids = pipeline.uids_to_device(st.uids[:c], "cuda")
+    fault = st.fault.map(lambda x: x[:c])
+    targets, d2d = st.targets[:c], st.d2d[:c]
+    dev = wv.device
+    # The first fine iteration of these columns as the deploy ran it:
+    # coarse SET under the fault map, verify, write noise.
+    _, k_coarse, k_loop = rng.split(rng.fold_col_keys(key, uids), 3)
+    n_coarse = _characterized_coarse_pulses(targets, dev, wv.max_coarse_iters)
+    g0 = dev_mod.apply_pulses(k_coarse, torch.zeros_like(targets),
+                              torch.where(n_coarse > 0, 1.0, 0.0), n_coarse, d2d, dev,
+                              step_lsb=dev.coarse_step_lsb, fault=fault)
+    k_v, k_w = rng.split(rng.fold_in(k_loop, 0))
+    agg, mag, _, thr = verify_aggregate(k_v, g0, targets, wv)
+    c2c, nmap = dev_mod.sample_write_noise(k_w, (c, n), dev)
+    eff = d2d * fault.efficiency
+    p = WVCellParams(threshold=thr, k_streak=wv.k_streak, can_freeze=False, ternary=True,
+                     fine_step=dev.fine_step_lsb, max_pulses=float(wv.max_pulses_per_iter),
+                     g_max=dev.g_max_lsb, nonlinearity=dev.nonlinearity,
+                     reset_asymmetry=dev.reset_asymmetry, nmap_sqrt_pulses=True)
+    wv_args = (agg, mag.contiguous(), g0, torch.zeros((c, n), dtype=torch.int32, device="cuda"),
+               torch.zeros((c, n), dtype=torch.bool, device="cuda"), c2c, nmap, eff)
+    kcases = {"wv_step": [dict(_wv_case(wv_args, p),
+                               case=f"faulty bucket, first fine iteration, C={c}")]}
+    weak = int(((fault.efficiency < 0.1) & ~fault.stuck).sum())
+    spares_t = st.targets[c_prim:]
+    kcases["fwht"] = [dict(phase_fwht(n, gen, x=spares_t),
+                           case=f"spare-pass targets of w_down, C={spares_t.shape[0]}")]
+    cim = CIMConfig(dac_bits=6, adc_bits=10, sigma_read_lsb=0.2)
+    w = build_weight(model.arrays["['layers']['w_gate']"], cim,
+                     rng.PRNGKey(0, device="cuda")).layer(0)
+    vmm_case = _vmm_case(w, cim, 4, w.n_tiles, False, gen, "remapped decode")
+    _print_vmm(w, cim, {"remapped decode": vmm_case})
+
+    # The fault sampler on the card against the CPU, at placed uids.
+    sample_rows = []
+    for what, lo, k_ in (("primary", 0, 1 << 16), ("spare", c_prim, 1 << 14)):
+        k_ = min(k_, len(st.uids) - lo)
+        shape = (k_, n)
+        ut = torch.from_numpy(np.asarray(st.uids[lo: lo + k_], np.int64))
+        card = dev_mod.sample_fault_map(key, ut.to("cuda"), shape, fc, dev)
+        cpu = dev_mod.sample_fault_map(key.cpu(), ut, shape, fc, dev)
+        # The deploy sampled these rows on the card too, in other chunks.
+        if not all(torch.equal(a[lo: lo + k_], b) for a, b in zip(st.fault, card)):
+            raise AssertionError(f"{what} fault rows differ from the deploy's")
+        differ = ((card.stuck.cpu() != cpu.stuck) | (card.stuck_g.cpu() != cpu.stuck_g))
+        ties = _threshold_ties(key, ut, shape, fc, dev)
+        eff_err = float(((card.efficiency.cpu() - cpu.efficiency).abs()
+                         / cpu.efficiency.abs().clamp_min(1e-30)).max())
+        sample_rows.append((what, k_, int(differ.sum()), int(ties.sum()), eff_err))
+        if bool((differ & ~ties).any()) or not eff_err <= 1e-6:
+            raise AssertionError(f"sample_fault_map {what}: {int(differ.sum())} cells differ "
+                                 f"from the CPU ({int(ties.sum())} on a threshold), "
+                                 f"efficiency off by {eff_err:.3g} relative")
+    cand_n = torch.from_numpy(np.random.RandomState(1).poisson(0.3, c_prim).astype(np.float32))
+    s_n = remap.n_spares(c_prim, rcfg)
+    cand_ok = torch.equal(remap.spare_candidates(cand_n.to("cuda"), s_n).cpu(),
+                          remap.spare_candidates(cand_n, s_n))
+    if not cand_ok:
+        raise AssertionError("spare_candidates on the card differs from the CPU")
+    print(f"  kernels at this path's operands: {weak} weak cells (efficiency < 0.1) in the "
+          f"wv_step bucket; sample_fault_map card vs CPU: "
+          + "; ".join(f"{w_} {k_} uids: {d_} cells differ, {t_} on a threshold, efficiency "
+                      f"within {e_:.3g} relative" for w_, k_, d_, t_, e_ in sample_rows)
+          + f"; spare_candidates over {c_prim} tied counts ({s_n} spares) equal to the CPU's")
+
+    # ---- serve the remapped deployment --------------------------------------
+    b, s_len, steps = 4, 32, 8
+    tokens = torch.randint(0, cfg.vocab_size, (b, s_len), device="cuda", generator=gen,
+                           dtype=torch.int32)
+    _ideal_check(model, cfg, tokens, "faulty serve (remap arm)")
+    ex = CIMExecutor(model, cim, rng.PRNGKey(SEED + 3, device="cuda"))
+    engine = ServeEngine(cfg, executor=ex)
+    leaves = 7 * layers
+    torch.cuda.synchronize()
+    vmm_ops.launches = vmm_ops.launches_single = 0
+    t0 = time.perf_counter()
+    before = vmm_ops.launches
+    last, cache = engine._prefill(engine.access_params(b * s_len), {"tokens": tokens})
+    per_step, finite = [vmm_ops.launches - before], bool(torch.isfinite(last).all())
+    cur = torch.argmax(last, dim=-1).to(torch.int32)[:, None]
+    out = []
+    for _ in range(steps):
+        before = vmm_ops.launches
+        tok, logits, cache = engine._decode(engine.access_params(b), cache, {"tokens": cur})
+        per_step.append(vmm_ops.launches - before)
+        finite &= bool(torch.isfinite(logits).all())
+        cur = tok[:, None]
+        out.append(tok)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    serve_launches = vmm_ops.launches
+    out = torch.stack(out, dim=1)
+    print(f"  noisy serve of the remap arm ({cim}), batch {b}, prompt {s_len}, prefill + "
+          f"{steps} decode steps in {serve_s * 1e3:.1f} ms: acim_vmm_tiled launches per "
+          f"dispatch {per_step}; first sequence {out[0].tolist()}")
+    if set(per_step) != {leaves} or not finite:
+        raise AssertionError(f"faulty serve: launches per dispatch {per_step} (expected "
+                             f"{leaves}), logits finite {finite}")
+    if not bool(((out >= 0) & (out < cfg.vocab_size)).all()):
+        raise AssertionError("faulty serve: tokens outside the vocabulary")
+    del engine, ex, cache, last, logits
+
+    # ---- scrub the remapped deployment ----------------------------------------
+    sim = LifetimeSimulator(rng.PRNGKey(SEED + 7, device="cuda"), model, DriftConfig(),
+                            RefreshConfig(policy=RefreshPolicy.VERIFY_TRIGGERED),
+                            columns_per_tile=fc.columns_per_tile)
+    names = sorted(sim.states)
+    # Start the two-leaf window at w_down, so that both epochs scrub the
+    # big remapped leaves (sorted order begins with the norm scales).
+    sim._scrub_cursor = names.index(wd)
+    torch.cuda.synchronize()
+    obs.trace.reset()
+    fwht_ops.launches = wv_ops.launches = 0
+    records, epoch_ms = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        records.append(sim.step_epoch(AGING_S, max_leaves=2))
+        torch.cuda.synchronize()
+        epoch_ms.append((time.perf_counter() - t0) * 1e3)
+    scrub_launches = {"fwht": fwht_ops.launches, "wv_step": wv_ops.launches}
+    spans = {}
+    for e in obs.trace.events():
+        if e["ph"] == "X":
+            spans.setdefault(e["name"], []).append(e)
+    scrub_ms = [e["dur"] / 1e3 for e in spans.get("lifetime.scrub", [])]
+    rep_spans = spans.get("lifetime.reprogram", [])
+    print(f"  scrub of the remap arm: 2 epochs of {AGING_S:.0f} s aging, 2-leaf window from "
+          f"w_down; launches {scrub_launches}")
+    for r, ms, sm in zip(records, epoch_ms, scrub_ms):
+        print(f"    {dataclasses.asdict(r)}")
+        print(f"    epoch {r.epoch}: {ms:.1f} host ms, of which the scrub span (advance, "
+              f"verify, re-program) {sm:.1f}; the rest (health fetch) {ms - sm:.1f}")
+    for e in rep_spans:
+        print(f"    re-program {e['args']['columns']} columns (padded to "
+              f"{e['args']['padded']}): {e['dur'] / 1e3:.1f} host ms")
+    untouched = all(bool((sim.states[nm].age_s[~model.arrays[nm].remap.active]
+                          == 2 * AGING_S).all()) for nm in names)
+    if not untouched:
+        raise AssertionError("the scrub flagged or re-programmed an inactive row")
+    if not (scrub_launches["wv_step"] > 0 and scrub_launches["fwht"] > 0
+            and sum(r.columns_reprogrammed for r in records) > 0):
+        raise AssertionError(f"the scrub re-programmed nothing: {scrub_launches}")
+    sub = min(e["args"]["padded"] for e in rep_spans)
+    kcases["wv_step"].append(dict(
+        _wv_case(tuple(a[:sub].contiguous() for a in wv_args), p),
+        case=f"scrub subset C={sub}, faulty operands"))
+    print("    every inactive row kept its age (never re-programmed); wv_step held at the "
+          f"smallest re-program subset (C={sub}) on the faulty bucket's first rows")
+    del sim, wv_args, g0, agg, mag, c2c, nmap, eff
+
+    # ---- converter offset calibration -------------------------------------------
+    rcal = for_wv_method(WVConfig(method=WVMethod.HARP,
+                                  noise=NoiseConfig(sigma_read_lsb=0.7))
+                         ).replace(sigma_col_offset_lsb=1.5)
+    okey, ckey = rng.split(rng.PRNGKey(SEED + 9, device="cuda"))
+    fwht_ops.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    off = sample_col_offsets(okey, c_prim, rcal)
+    res = calibrate_offsets(ckey, off, rcal, k_reads=8)
+    torch.cuda.synchronize()
+    cal_ms = (time.perf_counter() - t0) * 1e3
+    cal_fwht = fwht_ops.launches
+    ratio = float(res.std() / off.std())
+    # The reference draws the calibration reads from one key over the
+    # whole batch, so a 4096-column call is its own stream: the card and
+    # the CPU each make that call.
+    o4 = sample_col_offsets(okey, 4096, rcal)
+    r4 = calibrate_offsets(ckey, o4, rcal, k_reads=8).cpu()
+    r4_cpu = calibrate_offsets(ckey.cpu(), sample_col_offsets(okey.cpu(), 4096, rcal),
+                               rcal, k_reads=8)
+    flips = int(((r4 - r4_cpu).abs() > 1e-5).sum())
+    print(f"  calibration ({rcal.basis.value} reads, SAR, read noise 0.7 LSB, offsets 1.5 "
+          f"LSB, K=8) over {c_prim} columns of {n}: {cal_ms:.1f} host ms, {cal_fwht} fwht "
+          f"launches; residual std / offset std = {ratio:.4f}; card vs CPU at 4096 columns: "
+          f"{flips} columns off by more than 1e-5 (SAR code flips), max "
+          f"{float((r4 - r4_cpu).abs().max()):.3g}")
+    if not ratio < 0.1 or cal_fwht == 0:
+        raise AssertionError(f"calibration: residual std ratio {ratio}, {cal_fwht} fwht")
+    if not flips <= 41:
+        raise AssertionError(f"calibration: {flips} of 4096 columns differ from the CPU")
+    return dict(kcases=kcases, vmm=vmm_case,
+                launches={"fwht": arm["launches"]["fwht"] + scrub_launches["fwht"] + cal_fwht,
+                          "wv_step": arm["launches"]["wv_step"] + scrub_launches["wv_step"],
+                          "acim_vmm_tiled": serve_launches, "acim_vmm": 0})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=4,
@@ -1101,6 +1587,9 @@ def main() -> int:
     phase_quickstart()
     stamp("deploy phase")
     dep = phase_deploy(args.layers)
+    # Phase 10's reference: the clean deploy's weights, before phase 9's
+    # scrub moves its conductances.
+    clean = {n: st.materialize(dtype=torch.float32) for n, st in dep["model"].arrays.items()}
     stamp("breakdown phase")
     phase_breakdown()
     stamp("acim_vmm kernel phase")
@@ -1111,6 +1600,12 @@ def main() -> int:
     phase_serve_breakdown(serve, gen)
     stamp("continuous serving phase")
     cont = phase_continuous(dep["model"], args.layers, gen)
+    serve_launches = serve["launches"]
+    del serve
+    torch.cuda.empty_cache()
+    stamp("faulty silicon phase")
+    phase_fault_guard()
+    faults = phase_faults(dep, clean, args.layers, gen)
     stamp("done")
 
     main_fwht, main_wv = k[("fwht", 32)], k[("wv_step", 32, True)]
@@ -1130,6 +1625,12 @@ def main() -> int:
     ]}
     for entry in line["kernels"]:
         entry["launches_continuous"] = cont["launches"][entry["name"]]
+        # Phase 10: the remap arm's deploy, its scrub and the calibration.
+        entry["launches_faults"] = faults["launches"][entry["name"]]
+        entry["faults_case"] = [
+            {k: r[k] for k in ("case", "ms", "plain_ms", "bound_ms", "bound_by",
+                               "library_ms", "max_abs_err")}
+            for r in faults["kcases"][entry["name"]]]
         # The same kernel at phase 9's scrub shapes.
         entry["scrub_case"] = [
             {k: r[k] for k in ("case", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -1142,14 +1643,16 @@ def main() -> int:
         cases = {c: o for c, o in vmm.items() if c != case and (o["tiles"] == 1) != tiled}
         if tiled:
             cases.update(cont["vmm"])
+            cases["remapped decode (phase 10)"] = faults["vmm"]
         line["kernels"].append(dict(
             name=name, route="cuda", source="src/repro_torch/kernels/csrc/acim_vmm.cu",
             replaces=f"src/repro/kernels/acim_vmm/acim_vmm.py:{src_line}",
-            launches=serve["launches"][name], max_abs_err=r["max_abs_err"],
+            launches=serve_launches[name], max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
             shape=f"B={r['b']} T={r['tiles']}", adc_flips=r["flips"],
             launches_continuous=cont["launches"][name],
+            launches_faults=faults["launches"][name],
             # The same kernel's other rows of phases 7 and 9 (route "raw" = f32).
             other_cases={c: dict(ms=o["ms"], bound_ms=o["bound_ms"], bound_by=o["bound_by"],
                                  plain_ms=o["plain_ms"], library_ms=o["library_ms"],

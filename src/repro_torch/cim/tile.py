@@ -176,13 +176,17 @@ def build_weight(state, cfg: Any, key: torch.Tensor, name: str = "",
     sub-stream into the noise key.  Other shapes tile the flattened
     (K, M) view.  Rebuilding after `g` changed re-views the new
     conductances.  `uid` is the executor's per-leaf noise sub-stream id.
+
+    A state carrying a spare-column `RemapTable` holds PHYSICAL (C + S)
+    rows; served traffic sees the repaired logical geometry, so the
+    ``g[remap.perm]`` gather comes before the slice re-view.
     """
-    if getattr(state, "remap", None) is not None:
-        raise NotImplementedError(
-            f"leaf {name!r} carries a spare-column remap table; remap is not "
-            "ported yet (core/remap.py)")
     layout: PackedLayout = state.layout
-    g_pos, g_neg = slice_planes(state.g, layout)
+    g = state.g
+    remap = getattr(state, "remap", None)
+    if remap is not None:
+        g = g[remap.perm]
+    g_pos, g_neg = slice_planes(g, layout)
     dev = g_pos.device
     if len(state.shape) == 3:
         n_layers = int(state.shape[0])

@@ -69,22 +69,35 @@ def deployed_from_numpy(tree: Any, arrays: dict[str, Any], wv_cfg=None,
         `ArrayState` fields ``g``, ``targets``, ``d2d``, ``scale`` (numpy),
         ``layout`` (mapping or object with ``k_in, m_out, n_cells,
         slices, bc``), ``shape``, ``dtype`` (numpy dtype or name) and,
-        optionally, ``uids`` (the physical column uids, host numpy).
+        optionally, ``uids`` (the physical column uids, host numpy),
+        ``fault`` (a `FaultMap`'s ``stuck, stuck_g, efficiency``) and
+        ``remap`` (a `RemapTable`'s ``perm, active``), each a mapping or
+        an object with those fields, so both packages hold the same
+        silicon.
       wv_cfg, cost: the deployment's `WVConfig` / `CircuitCost`
         (defaults if None).
     """
     from repro_torch.core.cost import CircuitCost
+    from repro_torch.core.device import FaultMap
     from repro_torch.core.programmer import (
         ArrayState,
         DeployedModel,
         flatten_with_names,
         names_tree,
     )
+    from repro_torch.core.remap import RemapTable
     from repro_torch.core.types import WVConfig
     from repro_torch.quant.pack import PackedLayout
 
     def field(obj, name):
         return obj[name] if isinstance(obj, dict) else getattr(obj, name)
+
+    def optional(obj, name, cls, dtypes):
+        sub = obj.get(name) if isinstance(obj, dict) else getattr(obj, name, None)
+        if sub is None:
+            return None
+        return cls(*(tensor_from_numpy(np.asarray(field(sub, f)).astype(d), device)
+                     for f, d in zip(cls._fields, dtypes)))
 
     states = {}
     for name, st in arrays.items():
@@ -100,6 +113,8 @@ def deployed_from_numpy(tree: Any, arrays: dict[str, Any], wv_cfg=None,
             shape=tuple(int(d) for d in field(st, "shape")),
             dtype=_DTYPES[np.dtype(field(st, "dtype")).name],
             uids=_uids(st),
+            fault=optional(st, "fault", FaultMap, (bool, np.float32, np.float32)),
+            remap=optional(st, "remap", RemapTable, (np.int64, bool)),
         )
     digital = {name: tensor_from_numpy(leaf, device)
                for name, leaf in flatten_with_names(tree) if name not in states}

@@ -13,3 +13,4 @@ from .cost import CircuitCost  # noqa: F401
 from .wv import WVStats, program_columns, verify_aggregate, verify_sweep  # noqa: F401
 from . import hadamard  # noqa: F401
 from . import pipeline  # noqa: F401
+from . import remap  # noqa: F401

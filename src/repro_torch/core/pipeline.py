@@ -19,6 +19,11 @@ Per-column RNG (see `core.rng`): every column draws from
 (key, uid) — not on bucket boundaries or padding.  That is what makes
 the bucketed path bit-identical to the per-leaf path.
 
+Faulty silicon (DESIGN.md Sec. 15): with a `FaultConfig` the per-cell
+fault map is sampled per uid, like d2d, and every dispatch programs
+under it; explicit `uids` let the spare-column pass program
+non-contiguous physical columns (`core.remap`).
+
 Nothing here synchronizes with the device; `host_fetch` is the one
 counted transfer point (`host_sync_count()`), and a batched deploy calls
 it exactly once.  Nothing here updates a tensor in place, so slices of
@@ -29,6 +34,7 @@ from __future__ import annotations
 
 from typing import Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -37,7 +43,7 @@ from repro_torch.obs import metrics as obs_metrics
 from . import device as dev_mod
 from . import rng
 from .cost import CircuitCost
-from .types import WVConfig
+from .types import FaultConfig, WVConfig
 from .wv import WVStats, program_columns
 
 __all__ = [
@@ -45,6 +51,7 @@ __all__ = [
     "get_program_fn",
     "program_packed_columns",
     "sample_d2d_for",
+    "sample_fault_for",
     "host_fetch",
     "compile_count",
     "host_sync_count",
@@ -107,23 +114,28 @@ def bucket_sizes(
     return sizes
 
 
-def get_program_fn(cfg: WVConfig, cost: CircuitCost):
+def get_program_fn(cfg: WVConfig, cost: CircuitCost, with_fault: bool = False):
     """The shared batched-programming entry: (key, targets, d2d, col_ids).
 
     Returns ``fn(key, (C, N) targets, (C, N) d2d, (C,) col_ids) ->
-    (g, WVStats)``, cached per (cfg, cost).
+    (g, WVStats)``, cached per (cfg, cost, with_fault).  With
+    `with_fault=True` the entry takes a trailing `device.FaultMap` of
+    (C, N) fields and programs under it; it has its own cache entry, so
+    the fault-free dispatches are counted apart.
     """
-    cache_key = (cfg, cost)
+    cache_key = (cfg, cost, with_fault)
     entry = _FN_CACHE.get(cache_key)
     if entry is None:
 
-        def entry(key, targets, d2d, col_ids):
+        def entry(key, targets, d2d, col_ids, *fault):
+            assert len(fault) == int(with_fault), (len(fault), with_fault)
             tk = (cache_key, tuple(targets.shape))
             if tk not in _TRACED:
                 _TRACED.add(tk)
                 obs_metrics.inc(COMPILE_COUNTER)
             return program_columns(
-                key, targets, cfg, cost=cost, d2d=d2d, col_ids=col_ids
+                key, targets, cfg, cost=cost, d2d=d2d, col_ids=col_ids,
+                fault=fault[0] if fault else None,
             )
 
         _FN_CACHE[cache_key] = entry
@@ -149,6 +161,33 @@ def sample_d2d_for(key, col_ids, shape, dev_cfg):
     return torch.cat(parts) if len(parts) > 1 else parts[0]
 
 
+def sample_fault_for(key, col_ids, shape, fault_cfg: FaultConfig, dev_cfg
+                     ) -> dev_mod.FaultMap:
+    """`device.sample_fault_map` over `col_ids`, `DEFAULT_MAX_BUCKET`
+    columns at a time (a column's faults depend only on (key, uid), so
+    chunking changes no value and bounds the generator's scratch)."""
+    parts = []
+    for off in range(0, int(shape[0]), DEFAULT_MAX_BUCKET):
+        ids = col_ids[off: off + DEFAULT_MAX_BUCKET]
+        parts.append(dev_mod.sample_fault_map(
+            key, ids, (ids.shape[0],) + tuple(shape[1:]), fault_cfg, dev_cfg))
+    if not parts:
+        return dev_mod.empty_fault_map(tuple(shape), device=key.device)
+    if len(parts) == 1:
+        return parts[0]
+    return dev_mod.FaultMap(*(torch.cat(xs) for xs in zip(*parts)))
+
+
+def uids_to_device(uids, device) -> torch.Tensor:
+    """Host uids -> an int64 tensor on `device` without a stream sync
+    (staged in pinned memory on the card)."""
+    t = torch.from_numpy(np.ascontiguousarray(np.asarray(uids, np.int64)))
+    device = torch.device(device)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def program_packed_columns(
     key: torch.Tensor,
     blocks: Sequence[torch.Tensor],
@@ -158,7 +197,11 @@ def program_packed_columns(
     min_bucket: int = DEFAULT_MIN_BUCKET,
     max_bucket: int = DEFAULT_MAX_BUCKET,
     uid_base: int = 0,
-) -> tuple[list[torch.Tensor], list[WVStats], list[torch.Tensor]]:
+    uids=None,
+    pad_uid_base: int | None = None,
+    fault_cfg: FaultConfig | None = None,
+) -> tuple[list[torch.Tensor], list[WVStats], list[torch.Tensor],
+           list[dev_mod.FaultMap | None]]:
     """Program many packed column blocks in a few bucketed dispatches.
 
     Args:
@@ -169,27 +212,46 @@ def program_packed_columns(
       uid_base: first column uid (block b's column j gets uid
         ``uid_base + sum(C_<b) + j``).  Filler uids for bucket padding
         start at ``uid_base + c_total``.
+      uids: optional explicit (sum C_i,) host column uids in place of
+        the contiguous numbering: the spare-column pass programs
+        non-contiguous physical columns (`core.remap`).
+      pad_uid_base: first filler uid (default ``uid_base + c_total``);
+        with explicit `uids`, pass a value past the whole uid range.
+      fault_cfg: optional fault population.  When it has faults, the
+        fault map is sampled per uid from the same master key (a
+        bucketed and a per-leaf deploy see the same silicon), programming
+        runs under it, and it is returned per block for the caller to
+        keep beside d2d.  Filler rows get inert fault rows.
 
-    Returns (g_blocks, stats_blocks, d2d_blocks), split back to the input
-    block boundaries.  Everything stays on the device; no host syncs.
+    Returns (g_blocks, stats_blocks, d2d_blocks, fault_blocks), split
+    back to the input block boundaries; `fault_blocks` holds None per
+    block without faults.  Everything stays on the device; no host syncs.
     """
     if cost is None:
         cost = CircuitCost()
     sizes = [int(b.shape[0]) for b in blocks]
     c_total = sum(sizes)
     if c_total == 0:
-        return [], [], []
+        return [], [], [], []
     device = key.device
     n = int(blocks[0].shape[1])
     targets = torch.cat(list(blocks)) if len(blocks) > 1 else blocks[0]
     targets = targets.to(device=device, dtype=torch.float32)
-    uids = uid_base + torch.arange(c_total, dtype=torch.int64, device=device)
-    pad_uid_base = uid_base + c_total
-    # d2d is persistent array state (ArrayState.d2d); same sub-streams as
-    # the engine would use internally.
+    if uids is None:
+        uids = uid_base + torch.arange(c_total, dtype=torch.int64, device=device)
+    else:
+        uids = uids_to_device(uids, device)
+    assert tuple(uids.shape) == (c_total,), (tuple(uids.shape), c_total)
+    if pad_uid_base is None:
+        pad_uid_base = uid_base + c_total
+    # d2d and the fault map are persistent array state (ArrayState.d2d /
+    # .fault), sampled from the same sub-streams the engine would use.
     d2d = sample_d2d_for(key, uids, (c_total, n), cfg.device)
+    with_fault = fault_cfg is not None and fault_cfg.any_faults
+    fault = (sample_fault_for(key, uids, (c_total, n), fault_cfg, cfg.device)
+             if with_fault else None)
 
-    fn = get_program_fn(cfg, cost)
+    fn = get_program_fn(cfg, cost, with_fault=with_fault)
     g_parts, stat_parts = [], []
     off = 0
     for size in bucket_sizes(c_total, min_bucket, max_bucket):
@@ -197,15 +259,20 @@ def program_packed_columns(
         tb = targets[off: off + take]
         db = d2d[off: off + take]
         ub = uids[off: off + take]
+        fb = fault.map(lambda x: x[off: off + take]) if with_fault else None
         pad = size - take
         if pad:
             # Filler columns: zero targets, fresh uids past the real range
-            # (their streams never alias a real column's), unit d2d.
+            # (their streams never alias a real column's), unit d2d, inert
+            # fault rows.
             tb = F.pad(tb, (0, 0, 0, pad))
             db = F.pad(db, (0, 0, 0, pad), value=1.0)
             ub = torch.cat([ub, pad_uid_base + torch.arange(
                 pad, dtype=torch.int64, device=device)])
-        g_b, st_b = fn(key, tb, db, ub)
+            if with_fault:
+                fb = dev_mod.FaultMap(*(torch.cat([x, f]) for x, f in zip(
+                    fb, dev_mod.empty_fault_map((pad, n), device=device))))
+        g_b, st_b = fn(key, tb, db, ub, *((fb,) if with_fault else ()))
         g_parts.append(g_b[:take])
         stat_parts.append(st_b.map(lambda x: x[:take]))
         off += take
@@ -216,11 +283,13 @@ def program_packed_columns(
         if len(stat_parts) > 1
         else stat_parts[0]
     )
-    g_blocks, stats_blocks, d2d_blocks = [], [], []
+    g_blocks, stats_blocks, d2d_blocks, fault_blocks = [], [], [], []
     off = 0
     for c_i in sizes:
         g_blocks.append(g_all[off: off + c_i])
         stats_blocks.append(stats_all.map(lambda x: x[off: off + c_i]))
         d2d_blocks.append(d2d[off: off + c_i])
+        fault_blocks.append(fault.map(lambda x: x[off: off + c_i])
+                            if with_fault else None)
         off += c_i
-    return g_blocks, stats_blocks, d2d_blocks
+    return g_blocks, stats_blocks, d2d_blocks, fault_blocks

@@ -15,6 +15,12 @@ reduced on the device and fetched with a single host sync.
 `batched=False` keeps the per-leaf baseline path; per-column RNG
 sub-streams make the two bit-identical.
 
+Faulty silicon (DESIGN.md Sec. 15, batched path only): `fault_cfg`
+samples a per-cell `FaultMap` kept in each `ArrayState`; `remap_cfg`
+provisions spare columns per leaf and, after the primary pass, repairs
+the worst columns onto them in a second pass (`core.remap`), with
+optional fault-aware placement.  The deploy still makes one host sync.
+
 Deployment policy (the reference's, kept as is):
 * leaves with ndim >= 2 go to RRAM (flattened to (K, M) on the last
   axis) — this includes the stacked per-layer norm scales (L, d);
@@ -43,9 +49,11 @@ from repro_torch.quant import (
 )
 from repro_torch.quant.pack import PackedLayout
 
+from . import device as dev_mod
 from . import pipeline
+from . import remap as remap_mod
 from .cost import CircuitCost
-from .types import WVConfig
+from .types import FaultConfig, WVConfig
 from .wv import WVStats
 
 __all__ = [
@@ -63,7 +71,14 @@ __all__ = [
 
 @dataclasses.dataclass
 class DeployReport:
-    """Aggregate WV statistics for one deployment."""
+    """Aggregate WV statistics for one deployment.
+
+    The give-up and remap fields ride the same single host sync as the
+    rest: `total_gave_up_cells` counts cells the retry budget declared
+    unprogrammable, `total_retry_pulses` the fine pulses burned on them,
+    `remapped_columns` the primary columns repaired onto spares.  All
+    three are zero on a fault-free deploy without a budget.
+    """
 
     num_columns: int = 0
     num_cells: int = 0
@@ -76,14 +91,17 @@ class DeployReport:
     total_write_pulses: float = 0.0
     total_gave_up_cells: float = 0.0  # cells declared unprogrammable
     total_retry_pulses: float = 0.0   # pulses burned on gave-up cells
+    remapped_columns: int = 0         # primaries repaired onto spares
     leaves: dict[str, dict[str, float]] = dataclasses.field(default_factory=dict)
 
     @classmethod
-    def collect(cls, leaf_stats: "dict[str, WVStats]", n_cells: int) -> "DeployReport":
+    def collect(cls, leaf_stats: "dict[str, WVStats]", n_cells: int,
+                remapped: "dict[str, torch.Tensor] | None" = None) -> "DeployReport":
         """Device-side report reduction with exactly ONE host sync.
 
         All reductions (per-leaf and aggregate) run on the device over the
-        `WVStats` tensors; one `pipeline.host_fetch` moves the scalars.
+        `WVStats` tensors; one `pipeline.host_fetch` moves the scalars,
+        with the per-leaf remapped-column counts (`remapped`) beside them.
         """
         if not leaf_stats:
             return cls()
@@ -112,10 +130,11 @@ class DeployReport:
             )
             for name, s in leaf_stats.items()
         }
-        agg_h, per_h = pipeline.host_fetch((agg, per))
+        agg_h, per_h, rem_h = pipeline.host_fetch((agg, per, remapped or {}))
         report = cls(
             num_columns=sum(int(s.iterations.shape[0]) for s in stats),
             num_cells=sum(int(s.iterations.shape[0]) * n_cells for s in stats),
+            remapped_columns=int(sum(float(v) for v in rem_h.values())),
             **{k: float(v) for k, v in agg_h.items()},
         )
         report.leaves = {
@@ -125,6 +144,8 @@ class DeployReport:
             )
             for name, d in per_h.items()
         }
+        for name, v in rem_h.items():
+            report.leaves[name]["remapped_columns"] = float(v)
         return report
 
     def merge(self, name: str, stats: WVStats, n_cells: int) -> None:
@@ -170,23 +191,32 @@ class ArrayState:
     ``uid // columns_per_tile`` is the tile a column lives on, which is
     how the scrub's health maps (`obs.health`) attribute drift to
     silicon without device work.
+
+    A faulty-silicon deploy carries two more pieces of physical state:
+    `fault`, the sampled per-cell `FaultMap` that every re-program of the
+    same cells reuses, and `remap`, the spare-column `RemapTable`.  With
+    a remap the per-column tensors are PHYSICAL (C + S rows: C primaries
+    then S spares), the logical C-column view is ``x[remap.perm]``, and
+    `layout` describes the logical geometry.
     """
 
-    g: torch.Tensor              # (C, N) programmed analog levels, LSB
-    targets: torch.Tensor        # (C, N) integer target levels, LSB
-    d2d: torch.Tensor            # (C, N) static per-cell step efficiency
+    g: torch.Tensor              # (C[+S], N) programmed analog levels, LSB
+    targets: torch.Tensor        # (C[+S], N) integer target levels, LSB
+    d2d: torch.Tensor            # (C[+S], N) static per-cell step efficiency
     scale: torch.Tensor          # per-channel quantization scale
     layout: PackedLayout
     shape: tuple[int, ...]       # original leaf shape
     dtype: torch.dtype
     uids: np.ndarray | None = None
+    fault: dev_mod.FaultMap | None = None      # sampled silicon faults
+    remap: remap_mod.RemapTable | None = None  # spare-column repair view
 
     def materialize(self, dtype: torch.dtype | None = None) -> torch.Tensor:
         """Programmed conductances -> effective dense weight leaf.
 
         `dtype` overrides the stored leaf dtype.
         """
-        q = unpack_columns(self.g, self.layout)
+        q = unpack_columns(remap_mod.apply_remap(self.g, self.remap), self.layout)
         w = dequantize_weight(q, self.scale).reshape(self.shape)
         return w.to(self.dtype if dtype is None else dtype)
 
@@ -267,12 +297,18 @@ class _LeafPlan:
     scale: torch.Tensor
     uid_base: int                # first global column uid of this leaf
 
-    def state(self, g: torch.Tensor, d2d: torch.Tensor) -> ArrayState:
+    def state(self, g: torch.Tensor, d2d: torch.Tensor,
+              targets: torch.Tensor | None = None,
+              fault: dev_mod.FaultMap | None = None,
+              remap: remap_mod.RemapTable | None = None,
+              uids: np.ndarray | None = None) -> ArrayState:
+        if uids is None:
+            uids = self.uid_base + np.arange(int(self.cols.shape[0]), dtype=np.int64)
         return ArrayState(
-            g=g, targets=self.cols, d2d=d2d, scale=self.scale,
-            layout=self.layout, shape=tuple(self.leaf.shape),
-            dtype=self.leaf.dtype,
-            uids=self.uid_base + np.arange(int(self.cols.shape[0]), dtype=np.int64),
+            g=g, targets=self.cols if targets is None else targets, d2d=d2d,
+            scale=self.scale, layout=self.layout, shape=tuple(self.leaf.shape),
+            dtype=self.leaf.dtype, uids=np.asarray(uids, np.int64),
+            fault=fault, remap=remap,
         )
 
 
@@ -343,6 +379,9 @@ def deploy_arrays(
     batched: bool = True,
     min_bucket: int = pipeline.DEFAULT_MIN_BUCKET,
     max_bucket: int = pipeline.DEFAULT_MAX_BUCKET,
+    fault_cfg: FaultConfig | None = None,
+    remap_cfg: remap_mod.RemapConfig | None = None,
+    sensitivity: Callable[[str, torch.Tensor], float] | None = None,
     device="cuda",
 ) -> tuple[DeployedModel, DeployReport]:
     """Program every eligible weight leaf, keeping persistent array state.
@@ -352,9 +391,23 @@ def deploy_arrays(
     one host sync for the report; `batched=False` programs leaf by leaf.
     Both paths draw per-column sub-streams, so they are bit-identical.
     Leaves are moved to `device` first.
+
+    Faulty silicon (DESIGN.md Sec. 15, batched path only): `fault_cfg`
+    samples a per-cell `FaultMap` (kept in each `ArrayState`) and
+    programs under it; `remap_cfg` provisions spare columns per leaf and,
+    after the primary pass, repairs the worst columns (by
+    `WVStats.gave_up`, so set `wv_cfg.give_up_pulses`) onto them, with
+    optional fault-aware placement steering leaves ranked by
+    `sensitivity(name, leaf)` onto the cleanest probed tiles.  Every
+    remap decision runs on the device; the deploy still makes exactly
+    one host sync, which carries the give-up and remap counts.
     """
     q_cfg = q_cfg or _default_qcfg(wv_cfg)
     cost = cost or CircuitCost()
+    use_fault = fault_cfg is not None and fault_cfg.any_faults
+    use_remap = remap_cfg is not None and remap_cfg.spare_frac > 0.0
+    if (use_fault or use_remap) and not batched:
+        raise ValueError("fault_cfg/remap_cfg require the batched deployment path")
     key = key.to(device)
     digital: dict[str, Any] = {}
     plans: list[_LeafPlan] = []
@@ -368,16 +421,22 @@ def deploy_arrays(
         plans.append(plan)
 
     arrays: dict[str, ArrayState] = {}
-    if batched:
-        g_blocks, stats_blocks, d2d_blocks = pipeline.program_packed_columns(
-            key, [p.cols for p in plans], wv_cfg, cost,
-            min_bucket=min_bucket, max_bucket=max_bucket,
-        )
-        for plan, g, d2d in zip(plans, g_blocks, d2d_blocks):
-            arrays[plan.name] = plan.state(g, d2d)
+    fc = fault_cfg if use_fault else None
+    if batched and not use_remap:
+        g_blocks, stats_blocks, d2d_blocks, fault_blocks = (
+            pipeline.program_packed_columns(
+                key, [p.cols for p in plans], wv_cfg, cost,
+                min_bucket=min_bucket, max_bucket=max_bucket, fault_cfg=fc,
+            ))
+        for plan, g, d2d, fb in zip(plans, g_blocks, d2d_blocks, fault_blocks):
+            arrays[plan.name] = plan.state(g, d2d, fault=fb)
         report = DeployReport.collect(
             {p.name: s for p, s in zip(plans, stats_blocks)}, wv_cfg.n_cells
         )
+    elif batched:
+        arrays, report = _deploy_with_spares(
+            key, plans, wv_cfg, cost, fc, remap_cfg, sensitivity,
+            min_bucket, max_bucket)
     else:
         report = DeployReport()
         for plan in plans:
@@ -387,6 +446,71 @@ def deploy_arrays(
     model = DeployedModel(names=names_tree(params), digital=digital,
                           arrays=arrays, wv_cfg=wv_cfg, cost=cost)
     return model, report
+
+
+def _deploy_with_spares(key, plans: list[_LeafPlan], wv_cfg: WVConfig,
+                        cost: CircuitCost, fault_cfg: FaultConfig | None,
+                        remap_cfg: remap_mod.RemapConfig, sensitivity,
+                        min_bucket: int, max_bucket: int
+                        ) -> tuple[dict[str, ArrayState], DeployReport]:
+    """The two-pass spare-column deploy (DESIGN.md Sec. 15).
+
+    Pass A programs every leaf's primary columns; the worst columns (by
+    give-up count) pick spare candidates on the device; pass B programs
+    the candidates' targets on the spares' own physical uids; the remap
+    table is decided on the device from both passes' stats.  One host
+    sync in all, the report's.
+    """
+    c_counts = [int(p.cols.shape[0]) for p in plans]
+    s_counts = [remap_mod.n_spares(c, remap_cfg) for c in c_counts]
+    phys_counts = [c + s for c, s in zip(c_counts, s_counts)]
+    if remap_cfg.placement and fault_cfg is not None:
+        sens = [sensitivity(p.name, p.leaf) if sensitivity is not None
+                else 1.0 / max(pc, 1) for p, pc in zip(plans, phys_counts)]
+        uid_arrays = remap_mod.plan_placement(
+            key, phys_counts, fault_cfg, sens,
+            provision=remap_cfg.placement_provision)
+        uid_end = max((int(u.max()) + 1 for u in uid_arrays if u.size), default=0)
+    else:
+        uid_arrays, base = [], 0
+        for pc in phys_counts:
+            uid_arrays.append(base + np.arange(pc, dtype=np.int64))
+            base += pc
+        uid_end = base
+    prim_uids = np.concatenate([ua[:c] for ua, c in zip(uid_arrays, c_counts)])
+    spare_uids = np.concatenate([ua[c:] for ua, c in zip(uid_arrays, c_counts)])
+    buckets = dict(min_bucket=min_bucket, max_bucket=max_bucket,
+                   pad_uid_base=uid_end, fault_cfg=fault_cfg)
+    g_blocks, stats_blocks, d2d_blocks, fault_blocks = pipeline.program_packed_columns(
+        key, [p.cols for p in plans], wv_cfg, cost, uids=prim_uids, **buckets)
+    cands = [remap_mod.spare_candidates(st.gave_up, s)
+             for st, s in zip(stats_blocks, s_counts)]
+    spare_cols = [p.cols[cand] for p, cand in zip(plans, cands)]
+    sg_blocks, sstats_blocks, sd2d_blocks, sfault_blocks = (
+        pipeline.program_packed_columns(
+            key, spare_cols, wv_cfg, cost, uids=spare_uids, **buckets))
+
+    arrays: dict[str, ArrayState] = {}
+    combined: dict[str, WVStats] = {}
+    remapped: dict[str, torch.Tensor] = {}
+    for i, plan in enumerate(plans):
+        st, sst = stats_blocks[i], sstats_blocks[i]
+        table = remap_mod.build_table(st.gave_up, cands[i], sst.gave_up,
+                                      remap_cfg.min_gave_up)
+        fb, sfb = fault_blocks[i], sfault_blocks[i]
+        arrays[plan.name] = plan.state(
+            torch.cat([g_blocks[i], sg_blocks[i]]),
+            torch.cat([d2d_blocks[i], sd2d_blocks[i]]),
+            targets=torch.cat([plan.cols, spare_cols[i]]),
+            fault=(None if fb is None else
+                   dev_mod.FaultMap(*(torch.cat([a, b]) for a, b in zip(fb, sfb)))),
+            remap=table,
+            uids=uid_arrays[i],
+        )
+        combined[plan.name] = WVStats(*(torch.cat([a, b]) for a, b in zip(st, sst)))
+        remapped[plan.name] = torch.sum((~table.active[: c_counts[i]]).to(torch.float32))
+    report = DeployReport.collect(combined, wv_cfg.n_cells, remapped=remapped)
+    return arrays, report
 
 
 def deploy_params(

@@ -158,6 +158,7 @@ def program_columns(
     d2d: torch.Tensor | None = None,
     col_ids: torch.Tensor | None = None,
     col_offset: torch.Tensor | None = None,
+    fault: dev_mod.FaultMap | None = None,
     *,
     device=None,
 ) -> tuple[torch.Tensor, WVStats]:
@@ -174,12 +175,19 @@ def program_columns(
         (DESIGN.md Sec. 10), independent of batch composition/padding.
         When None, the legacy batch-shaped draws are used.
       col_offset: optional (C,) static per-column converter offset.
+      fault: optional static per-cell `device.FaultMap`, sampled by the
+        caller like `d2d` (a scrub re-programs under the same silicon).
+        The `wv_step` update takes ``d2d * fault.efficiency`` as its
+        efficiency operand, so weak and tile-degraded cells need no
+        kernel change, and stuck cells are re-pinned after each update
+        (the reference's association, so `fault=None` and an inert map
+        give bitwise the same conductances).
       device: where to run; defaults to the device of `targets`.
 
     Give-up (DESIGN.md Sec. 15): with `cfg.give_up_pulses` set, a cell
     whose cumulative fine-pulse count reaches the budget at the start of
     a sweep is frozen as unprogrammable; cells still unfrozen at the end
-    also count as gave-up.
+    also count as gave-up.  Stuck and weak cells are what exhaust it.
 
     Returns (g_final, WVStats).
     """
@@ -203,6 +211,8 @@ def program_columns(
         d2d = dev_mod.sample_d2d(k_d2d, targets.shape, dev_cfg)
     else:
         d2d = d2d.to(device)
+    if fault is not None:
+        fault = fault.map(lambda x: x.to(device))
 
     # ---- coarse OPEN-LOOP SET from HRS: pulse counts come from the
     # characterized device curve (no verify reads — write cost only).
@@ -211,7 +221,7 @@ def program_columns(
     direction0 = torch.where(n_coarse > 0, 1.0, 0.0)
     g = dev_mod.apply_pulses(
         k_coarse, g, direction0, n_coarse, d2d, dev_cfg,
-        step_lsb=dev_cfg.coarse_step_lsb,
+        step_lsb=dev_cfg.coarse_step_lsb, fault=fault,
     )
     lat, en = write_phase_cost(g, n_coarse, direction0, dev_cfg, cost, coarse=True)
     pulses = torch.sum(n_coarse, dim=-1)
@@ -223,6 +233,7 @@ def program_columns(
     )
     budget = cfg.give_up_pulses
     nmap_sqrt = dev_cfg.map_noise_mode == "pulse"
+    d2d_eff = d2d if fault is None else d2d * fault.efficiency
 
     streak = torch.zeros(targets.shape, dtype=torch.int32, device=device)
     frozen = torch.zeros(targets.shape, dtype=torch.bool, device=device)
@@ -260,7 +271,7 @@ def program_columns(
         )
         g_new, streak, frozen, n_p, direction = wv_ops.wv_cell_update(
             agg, dev_mag.contiguous(), g, streak, frozen_in.contiguous(),
-            c2c, nmap, d2d, p,
+            c2c, nmap, d2d_eff, p,
         )
 
         # Cost accounting (active columns only), priced at the pre-write g.
@@ -275,7 +286,7 @@ def program_columns(
         reads = reads + actf * reads_per_sweep
         pulses = pulses + torch.sum(n_p, dim=-1)
         cell_pulses = cell_pulses + n_p
-        g = dev_mod.clamp_stuck(g_new)
+        g = dev_mod.clamp_stuck(g_new, fault)
 
     zero = torch.zeros((c,), dtype=torch.float32, device=device)
     if budget is not None:

@@ -15,8 +15,11 @@ power of two (capped at C) and programmed through the deploy pipeline's
 shared entry (`core.pipeline.get_program_fn`), so the dispatch shapes
 stay at most log2(C) + 1 per method.
 
-Fault maps and spare-column remap tables (`fault=`, `active=`) are not
-ported yet and raise `NotImplementedError`.
+A remapped array (DESIGN.md Sec. 15) passes `active=`: its inactive
+physical rows (remapped-away primaries, unused spares) are never flagged
+or re-programmed.  A faulty one passes its deployment's `fault=` map,
+whose rows re-programming gathers for the flagged columns, never
+resampling them.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch import readout as ro
+from repro_torch.core import device as dev_mod
 from repro_torch.core import pipeline, rng
 from repro_torch.core.cost import CircuitCost, read_phase_cost
 from repro_torch.core.types import WVConfig, WVMethod
@@ -153,15 +157,19 @@ def _pad_pow2(idx: np.ndarray, c: int) -> np.ndarray:
 
 def _reprogram_subset(key, state: CellState, targets: torch.Tensor,
                       mask: np.ndarray, cfg: WVConfig, cost: CircuitCost,
-                      drift_cfg: DriftConfig
+                      drift_cfg: DriftConfig,
+                      fault: dev_mod.FaultMap | None = None,
                       ) -> tuple[CellState, float, float, float, float, float]:
     """Re-program the masked columns; returns
     (state, lat, energy, pulses, gave_up_cells, retry_pulses).
 
     Wear-degraded step efficiency feeds `program_columns` through its
-    d2d argument, so an old array takes more iterations to converge.
-    Latency is the max over re-programmed columns (array-parallel),
-    energy the sum; the five scalars reach the host in one fetch.
+    d2d argument, so an old array takes more iterations to converge.  A
+    deployment's `FaultMap` is physical state: its rows are gathered for
+    the flagged columns and passed through the dispatch, never
+    resampled.  Latency is the max over re-programmed columns
+    (array-parallel), energy the sum; the five scalars reach the host in
+    one fetch.
     """
     c, n = targets.shape
     idx = np.nonzero(mask)[0]
@@ -176,10 +184,11 @@ def _reprogram_subset(key, state: CellState, targets: torch.Tensor,
     k_prog, k_state = rng.split(key)
     # The deploy's batched entry; col_ids are the physical column indices,
     # so each column's refresh stream does not depend on the others.
-    fn = pipeline.get_program_fn(cfg, cost)
+    fn = pipeline.get_program_fn(cfg, cost, with_fault=fault is not None)
+    fargs = () if fault is None else (fault.map(lambda x: x[idx_p]),)
     with obs.span("lifetime.reprogram", cat="lifetime", columns=k,
                   padded=int(idx_p.shape[0])):
-        g_sub, stats = fn(k_prog, sub_targets, sub_d2d, idx_p)
+        g_sub, stats = fn(k_prog, sub_targets, sub_d2d, idx_p, *fargs)
     # Scatter back: idx_p = [idx, filler], so its first k rows are the
     # flagged columns and the filler rows are dropped duplicates.
     g_new = state.g.index_copy(0, idx_t, g_sub[:k])
@@ -204,13 +213,19 @@ def _reprogram_subset(key, state: CellState, targets: torch.Tensor,
 
 def apply_refresh(key, state: CellState, targets: torch.Tensor, cfg: WVConfig,
                   cost: CircuitCost, drift_cfg: DriftConfig,
-                  refresh_cfg: RefreshConfig, epoch: int, active=None,
-                  fault=None) -> tuple[CellState, RefreshOutcome]:
-    """Run one epoch's refresh decision for a batch of columns."""
-    if active is not None or fault is not None:
-        raise NotImplementedError(
-            "refresh of a remapped or faulty array (active=, fault=) is not "
-            "ported yet: ROADMAP.md stage 3 (fault maps, remap, spares)")
+                  refresh_cfg: RefreshConfig, epoch: int,
+                  active: torch.Tensor | None = None,
+                  fault: dev_mod.FaultMap | None = None,
+                  ) -> tuple[CellState, RefreshOutcome]:
+    """Run one epoch's refresh decision for a batch of columns.
+
+    `active` masks the physical rows of a remapped array that carry live
+    weight: inactive rows are never flagged or re-programmed, PERIODIC
+    scrubs active rows only, and verify energy is charged on the active
+    rows.  It reaches the host in the fetch that already moves the flag
+    mask.  `fault` is the deployment's fault map, threaded into
+    re-programming.
+    """
     outcome = RefreshOutcome()
     policy = refresh_cfg.policy
     due = (epoch + 1) % max(refresh_cfg.period_epochs, 1) == 0
@@ -219,20 +234,25 @@ def apply_refresh(key, state: CellState, targets: torch.Tensor, cfg: WVConfig,
     c = targets.shape[0]
     k_v, k_p = rng.split(key)
     if policy == RefreshPolicy.PERIODIC:
-        mask = np.ones((c,), bool)
+        mask = np.ones((c,), bool) if active is None else metrics.fetch(active) > 0.5
     elif policy == RefreshPolicy.VERIFY_TRIGGERED:
         flagged, sweeps = flag_columns(k_v, state.g, targets, cfg, refresh_cfg)
-        mask = metrics.fetch(flagged) > 0.5
-        # Every column pays `sweeps` verify sweeps (read phase, no writes).
+        if active is None:
+            active = torch.ones_like(flagged)
+        flagged_h, active_h = metrics.fetch((flagged, active))
+        active_h = active_h > 0.5
+        mask = (flagged_h > 0.5) & active_h
+        # Every active column pays `sweeps` verify sweeps (read phase, no
+        # writes); inactive rows are not driven.
         lat_v, en_v = read_phase_cost(cfg, cost)
         outcome.verify_latency_ns = float(lat_v) * sweeps  # array-parallel
-        outcome.verify_energy_pj = float(en_v) * sweeps * c
+        outcome.verify_energy_pj = float(en_v) * sweeps * int(active_h.sum())
         outcome.flagged = mask
     else:
         raise ValueError(policy)
 
     state, lat, en, pulses, gave_up, retry = _reprogram_subset(
-        k_p, state, targets, mask, cfg, cost, drift_cfg)
+        k_p, state, targets, mask, cfg, cost, drift_cfg, fault=fault)
     outcome.n_reprogrammed = int(mask.sum())
     outcome.program_latency_ns = lat
     outcome.program_energy_pj = en

@@ -156,6 +156,8 @@ class LifetimeSimulator:
         All reductions run on the device; ONE `metrics.fetch` moves the
         scalars, the per-tile sums and the drift digest together.  Tiles
         come from the deploy's physical column uids (`ArrayState.uids`).
+        A remapped-away or unused spare row counts neither as drift nor in
+        its tile: a parked stuck column is not drift the model sees.
         """
         col_e2, col_cnt, col_uids = [], [], []
         stuck_bad = None
@@ -165,9 +167,14 @@ class LifetimeSimulator:
             st = self.states[name]
             arr = self.deployed.arrays[name]
             err = st.g - arr.targets.to(torch.float32)
-            col_e2.append(torch.sum(err * err, dim=1))
-            col_cnt.append(torch.full((err.shape[0],), float(err.shape[1]),
-                                      dtype=torch.float32, device=err.device))
+            if arr.remap is not None:
+                act = arr.remap.active.to(torch.float32)
+                col_e2.append(torch.sum(err * err, dim=1) * act)
+                col_cnt.append(act * err.shape[1])
+            else:
+                col_e2.append(torch.sum(err * err, dim=1))
+                col_cnt.append(torch.full((err.shape[0],), float(err.shape[1]),
+                                          dtype=torch.float32, device=err.device))
             if have_uids:
                 col_uids.append(np.asarray(arr.uids, np.int64))
             s = torch.sum(st.stuck).to(torch.float32)
@@ -247,7 +254,9 @@ class LifetimeSimulator:
                     arr = self.deployed.arrays[name]
                     st, out = apply_refresh(
                         k_ref, st, arr.targets, wv_cfg, cost, self.drift_cfg,
-                        self.refresh_cfg, self.epoch)
+                        self.refresh_cfg, self.epoch,
+                        active=None if arr.remap is None else arr.remap.active,
+                        fault=arr.fault)
                     if out.flagged is not None:
                         flagged += int(out.flagged.sum())
                     reprogrammed += out.n_reprogrammed

@@ -1,5 +1,6 @@
 # The analog readout subsystem of the port: ONE model of the read path
-# (basis x converter x averaging x impairments) for WV verify.
+# (basis x converter x averaging x impairments) for WV verify, with
+# per-column converter offset calibration.
 # core.wv reads through this package: load core first, so that either
 # package can be imported first.
 import repro_torch.core  # noqa: F401
@@ -26,3 +27,4 @@ from .readout import (  # noqa: F401
     voted_signs,
 )
 from .cost import sweep_cost  # noqa: F401
+from .calibrate import calibrate_offsets, sample_col_offsets  # noqa: F401

@@ -26,7 +26,6 @@ Tolerances:
 """
 
 import dataclasses
-import types
 
 import jax
 import jax.numpy as jnp
@@ -302,9 +301,28 @@ def test_build_weight_fields_bitwise(stacked):
             tl = tw.layer(idx)
             np.testing.assert_array_equal(tl.g_pos.numpy(), np.asarray(jl.g_pos))
             assert int(tl.layer_id) == int(jl.layer_id)
-    remapped = types.SimpleNamespace(**vars(tst), remap=object())
-    with pytest.raises(NotImplementedError):
-        build_weight(remapped, cfg, _tk(jk))
+    # A remapped state holds physical rows (primaries, then spares); the
+    # tiles serve the logical view g[perm], as the reference's do.
+    from repro.core.remap import RemapTable as JRemapTable
+    from repro_torch.core.remap import RemapTable
+
+    c = int(tst.g.shape[0])
+    spares = np.random.RandomState(3).rand(3, tst.g.shape[1]).astype(np.float32) * 7
+    g_phys = np.concatenate([tst.g.numpy(), spares])
+    perm = np.arange(c)
+    perm[[1, 4, c - 1]] = [c + 2, c, c + 1]
+    active = np.ones(c + 3, bool)
+    active[[1, 4, c - 1]] = False
+    jrm = dataclasses.replace(jst, g=jnp.asarray(g_phys), remap=JRemapTable(
+        perm=jnp.asarray(perm, jnp.int32), active=jnp.asarray(active)))
+    trm = dataclasses.replace(tst, g=_t(g_phys), remap=RemapTable(
+        perm=torch.from_numpy(perm), active=torch.from_numpy(active)))
+    jw = j_build_weight(jrm, jcfg, jk, name="w", uid=3)
+    tw = build_weight(trm, cfg, _tk(jk), name="w", uid=3)
+    for f in ("g_pos", "g_neg"):
+        np.testing.assert_array_equal(getattr(tw, f).numpy(), np.asarray(getattr(jw, f)))
+    assert not np.array_equal(tw.g_pos.numpy(),
+                              build_weight(tst, cfg, _tk(jk)).g_pos.numpy())
 
 
 # ------------------------------------------------------------- cim_matmul

@@ -19,7 +19,11 @@ of 16 or 32 tokens at 10 DAC planes, split over tiles), both product routes (bin
 tensor-core products, raw activations through f32 FMAs, and a leaf that
 mixes them), ragged B, R and M (M % 4 != 0 and planes at an unaligned
 offset take the 4-byte copies), and a captured CUDA graph, whose replay
-must equal the eager call bitwise.  The continuous-batching scheduler
+must equal the eager call bitwise.  Faulty silicon: `wv_step` with a
+fault-scaled efficiency operand (weak cells at 0.05, a tile spread), the
+fault sampler on the card against the CPU (equal but on threshold ties),
+and the spare-candidate ranking on tied gave-up counts against the CPU's
+stable sort.  The continuous-batching scheduler
 serves a tiny deployment on the card with its dispatches under
 `torch.cuda.set_sync_debug_mode("error")`: one host sync per decode
 step, no hidden one, and the mode restored.
@@ -272,3 +276,100 @@ def test_scheduler_dispatch_has_no_hidden_sync(cuda):
         with sched._no_sync():
             x.item()
     assert torch.cuda.get_sync_debug_mode() == 0
+
+
+# Faulty silicon: the fault population of `benchmarks/fault_tolerance.py`
+# at its highest rate, with a tile-level efficiency spread on top.
+_FAULTS = dict(p_stuck_hrs=0.01, p_stuck_lrs=0.005, p_weak=0.005,
+               sigma_tile_fault_dec=0.5, sigma_tile_eff_frac=0.1,
+               columns_per_tile=64, tiles_per_chip=16)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("c", [4096, 37])
+def test_wv_step_kernel_with_fault_scaled_efficiency(cuda, c):
+    """The deploy under faults hands `wv_step` ``d2d * fault.efficiency``
+    (weak cells at 0.05, tile spread) and re-pins stuck cells after it."""
+    from repro_torch.core import device as dev_mod, rng
+    from repro_torch.core.types import DeviceConfig, FaultConfig
+
+    n = 32
+    uids = torch.arange(c, device=cuda, dtype=torch.int64) * 3 + 1000
+    key = rng.PRNGKey(9, device=cuda)
+    fault = dev_mod.sample_fault_map(key, uids, (c, n), FaultConfig(**_FAULTS),
+                                     DeviceConfig())
+    assert bool((fault.efficiency < 0.1).any()) and bool(fault.stuck.any())
+    gen = torch.Generator(cuda).manual_seed(c)
+    r = lambda: torch.randn(c, n, device=cuda, generator=gen)  # noqa: E731
+    d2d = (1.0 + 0.1 * r()) * fault.efficiency
+    args = (r() * 8.0, r().abs() * 2.0, torch.rand(c, n, device=cuda, generator=gen) * 7.0,
+            torch.randint(0, 3, (c, n), device=cuda, generator=gen, dtype=torch.int32),
+            torch.rand(c, n, device=cuda, generator=gen) < 0.3,
+            1.0 + 0.15 * r(), 0.05 * r(), d2d)
+    p = WVCellParams(threshold=4.0, k_streak=2, can_freeze=True, ternary=True,
+                     fine_step=0.25, max_pulses=16.0, g_max=7.0, nonlinearity=0.35,
+                     reset_asymmetry=0.85, nmap_sqrt_pulses=True)
+    got = wv_ops.wv_cell_update(*args, p)
+    want = wv_ref.wv_cell_update(*args, p)
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-5)
+    for a, b in zip(got[1:], want[1:]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    pinned = dev_mod.clamp_stuck(got[0], fault)
+    assert bool((pinned[fault.stuck] == fault.stuck_g[fault.stuck]).all())
+
+
+def _near_threshold(key, uids, shape, fc, dev) -> torch.Tensor:
+    """Cells whose classifying uniform lies within 1e-6 (relative) of one
+    of `sample_fault_map`'s thresholds, recomputed on the CPU."""
+    from repro_torch.core import device as dev_mod, rng
+
+    fkey = rng.fold_in(key, dev_mod._FAULT_SALT)
+    k_kind, _ = rng.split(rng.fold_col_keys(fkey, uids))
+    u = rng.uniform(k_kind, shape)
+    mult = dev_mod.tile_quality(key, dev_mod.tile_ids(uids, fc), fc)[:, None]
+    near = torch.zeros(shape, dtype=torch.bool)
+    p = torch.zeros_like(mult)
+    for rate in (fc.p_stuck_hrs, fc.p_stuck_lrs, fc.p_weak, fc.p_exhausted):
+        p = p + rate * mult
+        near |= (u - p).abs() <= 1e-6 * p
+    return near
+
+
+@pytest.mark.requires_cuda
+def test_sample_fault_map_on_card_matches_cpu(cuda):
+    """The fault map drawn on the card equals the CPU's: stuck / stuck_g
+    except on threshold ties (the tile multiplier is an `exp` of a normal
+    draw, whose ulps may differ), efficiency within rtol 1e-6."""
+    from repro_torch.core import device as dev_mod, rng
+    from repro_torch.core.types import DeviceConfig, FaultConfig
+
+    fc, dev = FaultConfig(**_FAULTS, sigma_chip_eff_frac=0.05), DeviceConfig()
+    uids = torch.from_numpy(np.random.RandomState(0).choice(
+        21_000_000, 1 << 14, replace=False).astype(np.int64))
+    shape = (uids.shape[0], 32)
+    cpu = dev_mod.sample_fault_map(rng.PRNGKey(7, device="cpu"), uids, shape, fc, dev)
+    card = dev_mod.sample_fault_map(rng.PRNGKey(7, device=cuda), uids.to(cuda), shape,
+                                    fc, dev)
+    differ = (card.stuck.cpu() != cpu.stuck) | (card.stuck_g.cpu() != cpu.stuck_g)
+    assert not bool((differ & ~_near_threshold(rng.PRNGKey(7, device="cpu"), uids,
+                                               shape, fc, dev)).any())
+    torch.testing.assert_close(card.efficiency.cpu(), cpu.efficiency, rtol=1e-6, atol=0)
+    assert 0 < int(cpu.stuck.sum()) < cpu.stuck.numel()
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("c,s", [(1 << 16, 1 << 14), (1000, 250), (7, 7)])
+def test_spare_candidates_on_card_match_cpu(cuda, c, s):
+    """Gave-up counts are small integers held in float32, so most columns
+    tie: the card's stable sort must pick the CPU's candidates, in order."""
+    from repro_torch.core import remap
+
+    counts = torch.from_numpy(np.random.RandomState(c).poisson(0.3, c).astype(np.float32))
+    want = remap.spare_candidates(counts, s)
+    got = remap.spare_candidates(counts.to(cuda), s)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+    spare = torch.from_numpy(np.random.RandomState(s).poisson(0.2, s).astype(np.float32))
+    t_cpu = remap.build_table(counts, want, spare)
+    t_card = remap.build_table(counts.to(cuda), got, spare.to(cuda))
+    for a, b in zip(t_card, t_cpu):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=0)

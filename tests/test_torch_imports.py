@@ -50,6 +50,14 @@ SLICE_MODULES = (
 )
 
 
-@pytest.mark.parametrize("rel", SLICE_MODULES)
+# The modules of the faulty-silicon slice (fault maps, give-up, spare
+# columns and placement, converter calibration).
+FAULT_SLICE_MODULES = (
+    "core/device.py", "core/wv.py", "core/pipeline.py", "core/remap.py",
+    "core/programmer.py", "cim/tile.py", "readout/calibrate.py",
+)
+
+
+@pytest.mark.parametrize("rel", SLICE_MODULES + FAULT_SLICE_MODULES)
 def test_slice_module_is_checked(rel):
     assert PORT / rel in FILES

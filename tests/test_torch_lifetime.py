@@ -224,10 +224,14 @@ def test_apply_refresh_matches_reference(jmodel, policy, method):
         np.array(targets)), wv, CircuitCost(), DriftConfig(),
         RefreshConfig(policy=RefreshPolicy.PERIODIC, period_epochs=2), epoch=0)
     assert same is got and none.n_reprogrammed == 0
-    with pytest.raises(NotImplementedError):
-        apply_refresh(_tk(jax.random.PRNGKey(5)), got, torch.from_numpy(np.array(
-            targets)), wv, CircuitCost(), DriftConfig(), RefreshConfig(), epoch=0,
-            active=torch.ones(targets.shape[0], dtype=torch.bool))
+    # An all-active mask is the unremapped array: the same outcome.
+    _, every = apply_refresh(
+        _tk(jax.random.PRNGKey(5)), cell_state_from_numpy(_np_state(aged), device="cpu"),
+        torch.from_numpy(np.array(targets)), wv, CircuitCost(), DriftConfig(),
+        RefreshConfig(policy=RefreshPolicy(policy.value)), epoch=0,
+        active=torch.ones(targets.shape[0], dtype=torch.bool))
+    assert every.n_reprogrammed == out.n_reprogrammed
+    assert every.verify_energy_pj == out.verify_energy_pj
 
 
 @pytest.mark.parametrize("policy", [JRefreshPolicy.VERIFY_TRIGGERED,
