@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py [--layers 4]
+    python3 chip_smoke.py [--layers 4] [--train-layers 2]
 
 Run from the repository root on a machine with an NVIDIA H100 and the
 CUDA toolkit.  Phases, each of which fails the run:
@@ -87,7 +87,28 @@ CUDA toolkit.  Phases, each of which fails the run:
    then prefill + 8 noisy decode steps of 28 launches each), scrubbed
    for two epochs (no inactive row flagged or re-programmed, `wv_step`
    on the re-program), and converter offsets are calibrated over the
-   w_down leaf's columns (residual spread under 0.1 of the offsets').
+   w_down leaf's columns (residual spread under 0.1 of the offsets');
+11. train, write-and-verify, eval loss: qwen3-0.6b at full width,
+   `--train-layers` deep, trains 30 steps (bf16 params, float32 AdamW
+   moments, `AdamWConfig()`, `SyntheticLM(151936, seq 256, batch 8, seed
+   0)`); every update must lower its own batch's loss (on fresh batches
+   the loss stays near ln(vocab): the chain is not learned in 30 steps);
+   step times (host median, device) and tokens/s
+   are printed, and the tied head + CE timed on its own.  The same steps
+   run again under deterministic algorithms with an async checkpoint at
+   step 15, restored into fresh tensors and resumed: both bitwise.  The
+   trained params are deployed by CW-SC and HARP at 0.7 LSB verify read
+   noise (fig10's severe point): one host sync and exactly 1 `wv_step`
+   (+ 3 `fwht` for HARP) per bucket-iteration each, HARP's rms cell error
+   below CW-SC's; each deployment's eval loss is read digitally, through
+   the arrays with ideal converters (within 1e-4 of the float32 digital
+   loss) and at `serve_lm`'s analog defaults; `fwht`, `wv_step` and
+   `acim_vmm_tiled` are held and timed on this path's operands;
+12. fig10 on the card: `benchmarks/fig10_robustness.py`'s tiny LM trained
+   220 steps and deployed by CW-SC, HD-PV and HARP at 0.1, 0.4 and 0.7
+   LSB; at 0.7 HD-PV's and HARP's rms must be below CW-SC's and their
+   dloss within CW-SC's + 0.01; `fwht` and `wv_step` are held and timed
+   on the operands of each bucket the HARP deploy at 0.7 LSB runs.
 
 The line before the last is a JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -117,6 +138,12 @@ AGING_S = 3600.0                 # phase 9: device age added per scrub epoch
 FAULTS = dict(p_stuck_hrs=0.01, p_stuck_lrs=0.005, p_weak=0.005,
               sigma_tile_fault_dec=0.5, columns_per_tile=64, tiles_per_chip=16)
 GIVE_UP_PULSES = 80
+TRAIN_STEPS = 30                 # phase 11: train steps at full width
+CKPT_STEP = 15                   # phase 11: the checkpoint's step
+EVAL_STEP = 10_000               # phases 11-12: the eval batch (fig10's step)
+EVAL_SEQS = 2                    # phase 11: sequences per noisy in-array eval call
+VERIFY_SIGMA = 0.7               # phases 11-12: fig10's severe verify read noise, LSB
+FIG10_STEPS = 220                # phase 12: `fig10_robustness._train_tiny_lm`'s steps
 
 
 def _nvidia_smi() -> str:
@@ -500,10 +527,12 @@ def phase_acim_vmm(model, gen) -> dict:
     return out
 
 
-def _vmm_case(w, cfg, tokens: int, tiles: int, raw: bool, gen, case: str) -> dict:
+def _vmm_case(w, cfg, tokens: int, tiles: int, raw: bool, gen, case: str,
+              rows: int | None = None) -> dict:
     """Hold one `acim_vmm` case against its plain version (ADC off and
     on) and time it beside its bound, its plain version and the batched
-    `torch.matmul` of its pre-ADC products; see `phase_acim_vmm`."""
+    `torch.matmul` of its pre-ADC products; see `phase_acim_vmm`.  With
+    `raw`, `rows` (default: the DAC planes of `tokens`) sets B."""
     import torch
 
     from repro_torch.cim.mvm import _dac_stream
@@ -519,6 +548,7 @@ def _vmm_case(w, cfg, tokens: int, tiles: int, raw: bool, gen, case: str) -> dic
     x = planes.reshape(-1, w.rows_in)[:, : tiles * r].contiguous()
     b = x.shape[0]
     if raw:
+        b = rows or b
         x = torch.randn(b, tiles * r, device="cuda", generator=gen)
     nz = 0.2 * torch.randn(tiles, s, b, m, device="cuda", generator=gen)
     if tiles == 1:
@@ -1278,6 +1308,38 @@ def _check_remapped(model) -> int:
     return n_stuck
 
 
+def _first_fine_iteration(key, st, wv, c: int, fault=None):
+    """`wv_step`'s operands in the first fine iteration of a deployed
+    leaf's first `c` columns, as the deploy ran it: coarse SET (under
+    `fault`, the leaf's fault map cut to `c` rows), verify, write noise.
+    Returns (operands, WVCellParams)."""
+    import torch
+
+    from repro_torch.core import device as dev_mod, pipeline, rng
+    from repro_torch.core.wv import _characterized_coarse_pulses, verify_aggregate
+    from repro_torch.kernels.wv_step.ref import WVCellParams
+
+    n, dev = wv.n_cells, wv.device
+    uids = pipeline.uids_to_device(st.uids[:c], "cuda")
+    targets, d2d = st.targets[:c], st.d2d[:c]
+    _, k_coarse, k_loop = rng.split(rng.fold_col_keys(key, uids), 3)
+    n_coarse = _characterized_coarse_pulses(targets, dev, wv.max_coarse_iters)
+    g0 = dev_mod.apply_pulses(k_coarse, torch.zeros_like(targets),
+                              torch.where(n_coarse > 0, 1.0, 0.0), n_coarse, d2d, dev,
+                              step_lsb=dev.coarse_step_lsb, fault=fault)
+    k_v, k_w = rng.split(rng.fold_in(k_loop, 0))
+    agg, mag, _, thr = verify_aggregate(k_v, g0, targets, wv)
+    c2c, nmap = dev_mod.sample_write_noise(k_w, (c, n), dev)
+    eff = d2d if fault is None else d2d * fault.efficiency
+    p = WVCellParams(threshold=thr, k_streak=wv.k_streak, can_freeze=False, ternary=True,
+                     fine_step=dev.fine_step_lsb, max_pulses=float(wv.max_pulses_per_iter),
+                     g_max=dev.g_max_lsb, nonlinearity=dev.nonlinearity,
+                     reset_asymmetry=dev.reset_asymmetry, nmap_sqrt_pulses=True)
+    args = (agg, mag.contiguous(), g0, torch.zeros((c, n), dtype=torch.int32, device="cuda"),
+            torch.zeros((c, n), dtype=torch.bool, device="cuda"), c2c, nmap, eff)
+    return args, p
+
+
 def phase_faults(dep: dict, clean: dict, layers: int, gen) -> dict:
     """Phase 10: deploy, serve and scrub qwen3-0.6b on faulty silicon.
 
@@ -1298,14 +1360,12 @@ def phase_faults(dep: dict, clean: dict, layers: int, gen) -> dict:
     from repro_torch import obs
     from repro_torch.cim import CIMConfig, CIMExecutor, build_weight
     from repro_torch.configs.qwen3_0_6b import CONFIG
-    from repro_torch.core import FaultConfig, NoiseConfig, WVConfig, WVMethod, pipeline
+    from repro_torch.core import FaultConfig, NoiseConfig, WVConfig, WVMethod
     from repro_torch.core import device as dev_mod, remap, rng
     from repro_torch.core.programmer import flatten_with_names
-    from repro_torch.core.wv import _characterized_coarse_pulses, verify_aggregate
     from repro_torch.kernels.acim_vmm import ops as vmm_ops
     from repro_torch.kernels.fwht import ops as fwht_ops
     from repro_torch.kernels.wv_step import ops as wv_ops
-    from repro_torch.kernels.wv_step.ref import WVCellParams
     from repro_torch.lifetime import (
         DriftConfig,
         LifetimeSimulator,
@@ -1346,27 +1406,9 @@ def phase_faults(dep: dict, clean: dict, layers: int, gen) -> dict:
     n = wv.n_cells
     c_prim = int(st.remap.perm.shape[0])
     c = min(C_DEPLOY, c_prim)
-    uids = pipeline.uids_to_device(st.uids[:c], "cuda")
-    fault = st.fault.map(lambda x: x[:c])
-    targets, d2d = st.targets[:c], st.d2d[:c]
     dev = wv.device
-    # The first fine iteration of these columns as the deploy ran it:
-    # coarse SET under the fault map, verify, write noise.
-    _, k_coarse, k_loop = rng.split(rng.fold_col_keys(key, uids), 3)
-    n_coarse = _characterized_coarse_pulses(targets, dev, wv.max_coarse_iters)
-    g0 = dev_mod.apply_pulses(k_coarse, torch.zeros_like(targets),
-                              torch.where(n_coarse > 0, 1.0, 0.0), n_coarse, d2d, dev,
-                              step_lsb=dev.coarse_step_lsb, fault=fault)
-    k_v, k_w = rng.split(rng.fold_in(k_loop, 0))
-    agg, mag, _, thr = verify_aggregate(k_v, g0, targets, wv)
-    c2c, nmap = dev_mod.sample_write_noise(k_w, (c, n), dev)
-    eff = d2d * fault.efficiency
-    p = WVCellParams(threshold=thr, k_streak=wv.k_streak, can_freeze=False, ternary=True,
-                     fine_step=dev.fine_step_lsb, max_pulses=float(wv.max_pulses_per_iter),
-                     g_max=dev.g_max_lsb, nonlinearity=dev.nonlinearity,
-                     reset_asymmetry=dev.reset_asymmetry, nmap_sqrt_pulses=True)
-    wv_args = (agg, mag.contiguous(), g0, torch.zeros((c, n), dtype=torch.int32, device="cuda"),
-               torch.zeros((c, n), dtype=torch.bool, device="cuda"), c2c, nmap, eff)
+    fault = st.fault.map(lambda x: x[:c])
+    wv_args, p = _first_fine_iteration(key, st, wv, c, fault)
     kcases = {"wv_step": [dict(_wv_case(wv_args, p),
                                case=f"faulty bucket, first fine iteration, C={c}")]}
     weak = int(((fault.efficiency < 0.1) & ~fault.stuck).sum())
@@ -1494,7 +1536,7 @@ def phase_faults(dep: dict, clean: dict, layers: int, gen) -> dict:
         case=f"scrub subset C={sub}, faulty operands"))
     print("    every inactive row kept its age (never re-programmed); wv_step held at the "
           f"smallest re-program subset (C={sub}) on the faulty bucket's first rows")
-    del sim, wv_args, g0, agg, mag, c2c, nmap, eff
+    del sim, wv_args
 
     # ---- converter offset calibration -------------------------------------------
     rcal = for_wv_method(WVConfig(method=WVMethod.HARP,
@@ -1533,10 +1575,434 @@ def phase_faults(dep: dict, clean: dict, layers: int, gen) -> dict:
                           "acim_vmm_tiled": serve_launches, "acim_vmm": 0})
 
 
+def _trees_equal(a, b) -> bool:
+    """Two trees of tensors equal leaf for leaf, bitwise, dtypes too."""
+    import torch
+
+    from repro_torch import pytree
+
+    la, lb = pytree.leaves_with_path(a), pytree.leaves_with_path(b)
+    return ([k for k, _ in la] == [k for k, _ in lb]
+            and all(x.dtype == y.dtype and torch.equal(x, y)
+                    for (_, x), (_, y) in zip(la, lb)))
+
+
+def phase_train(layers: int) -> dict:
+    """Phase 11, part 1: train qwen3-0.6b at full width, `layers` deep,
+    for `TRAIN_STEPS` steps (bf16 params, float32 AdamW moments,
+    `AdamWConfig()` defaults, the cosine schedule over `TRAIN_STEPS`) on
+    `SyntheticLM(151936, seq 256, batch 8, seed 0)`; every update must
+    lower the loss of the batch it was computed on (the loss on fresh
+    batches and on the eval batch is printed: a 151936-token bigram chain
+    is not learned in 30 steps, so it stays near ln(vocab)).  Step times: host
+    clock around each step ending in a sync (median), and device ms of
+    one step and of its tied head + CE (forward and backward) as
+    `_time_ms` gives them.  Then the checkpoint round trip, under
+    `torch.use_deterministic_algorithms(True, warn_only=True)` scoped to
+    it: the same steps again from the same state, saved at `CKPT_STEP`
+    by `CheckpointManager.save(blocking=False)`, restored into fresh
+    tensors (bitwise equal to the state saved) and continued to
+    `TRAIN_STEPS`: bitwise equal to the uninterrupted run."""
+    import shutil
+    import warnings
+
+    import torch
+
+    from repro_torch import pytree
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs.qwen3_0_6b import CONFIG
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models.layers import cross_entropy_loss
+    from repro_torch.models.transformer import loss_fn
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.training import init_train_state, make_train_step
+
+    cfg = CONFIG.replace(n_layers=layers)
+    opt = AdamWConfig()
+    data = SyntheticLM(cfg.vocab_size, 256, 8, seed=0, device="cuda")
+    batches = [data.global_batch_at(i)._asdict() for i in range(TRAIN_STEPS)]
+    tokens = batches[0]["tokens"].numel()
+    state0 = init_train_state(SEED, cfg, opt, device="cuda")
+    step = make_train_step(cfg, opt, total_steps=TRAIN_STEPS)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    ev = data.global_batch_at(EVAL_STEP)._asdict()
+    with torch.no_grad():
+        eval0 = loss_fn(state0.params, ev, cfg)[0]
+    state, losses, after, host_ms = state0, [], [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(m["loss"])
+        with torch.no_grad():  # the same batch after the step's update
+            after.append(loss_fn(state.params, b, cfg)[0])
+        torch.cuda.synchronize()  # before the next step's clock starts
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with torch.no_grad():
+        eval1 = float(loss_fn(state.params, ev, cfg)[0])
+    losses, after, eval0 = [float(x) for x in losses], [float(x) for x in after], float(eval0)
+    drops = [a - b for a, b in zip(losses, after)]
+    step_ms = statistics.median(host_ms)
+    dev_ms, stream_ms = _time_ms(lambda: step(state, batches[0]))
+
+    h = torch.randn(8, 256, cfg.d_model, device="cuda").to(cfg.dtype)
+    emb, b0 = state.params["tok_embed"], batches[0]
+
+    def head_ce():
+        hh = h.detach().requires_grad_(True)
+        ee = emb.detach().requires_grad_(True)
+        with torch.enable_grad():
+            logits = torch.matmul(hh.to(torch.float32), ee.to(torch.float32).t())
+            loss = cross_entropy_loss(logits, b0["targets"], b0["mask"])
+            return torch.autograd.grad(loss, (hh, ee))
+
+    head_ms, _ = _time_ms(head_ce)
+    head_bound, head_by = _bound(0.0, 6.0 * tokens * cfg.d_model * cfg.vocab_size)
+    last5 = statistics.mean(losses[-5:])
+    print(f"train qwen3-0.6b layers={layers} d_model={cfg.d_model} q_dim={cfg.q_dim} "
+          f"d_ff={cfg.d_ff} vocab={cfg.vocab_size} tied head, bf16 params, float32 AdamW "
+          f"moments, {TRAIN_STEPS} steps of {tokens} tokens (batch 8 x seq 256)")
+    print("  loss curve: " + " ".join(f"{x:.4f}" for x in losses))
+    print("  each step's batch after its update: " + " ".join(f"{x:.4f}" for x in after))
+    print(f"  the update lowered its own batch's loss in {sum(d > 0 for d in drops)} of "
+          f"{len(drops)} steps, by {min(drops):.4f}-{max(drops):.4f} (mean "
+          f"{statistics.mean(drops):.4f}); fresh batches: step 0 {losses[0]:.4f}, mean of "
+          f"the last 5 {last5:.4f}; eval batch {eval0:.4f} -> {eval1:.4f}")
+    print(f"  step host ms median {step_ms:.2f} (min {min(host_ms):.2f}, max "
+          f"{max(host_ms):.2f}; the first, with PyTorch's warm-up, {host_ms[0]:.2f}) = "
+          f"{tokens / step_ms * 1e3:.0f} tokens/s; device ms {dev_ms:.2f} (stream "
+          f"{stream_ms:.2f}); peak {peak:.2f} GiB with {held:.2f} GiB held before")
+    print(f"  tied head + CE, forward and backward, float32 (TF32 off): {head_ms:.2f} "
+          f"device ms = {head_ms / dev_ms:.1%} of the step; bound {head_bound:.2f} ms "
+          f"({head_by}, 6 x tokens x d_model x vocab at the float32 rate)")
+    # A 151936-token bigram chain cannot be learned from 61k tokens: the
+    # loss on fresh batches stays within batch noise of ln(vocab) here
+    # (PERF.md, Findings).  What must hold is that every update lowers the
+    # loss of the batch it was computed on.
+    if not all(d > 0 for d in drops):
+        raise AssertionError(f"an update did not lower its own batch's loss: {drops}")
+
+    # ---- the checkpoint round trip -----------------------------------------
+    ckpt = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            mgr = CheckpointManager(str(ckpt), keep=2)
+            s = state0
+            for i, b in enumerate(batches):
+                s, _ = step(s, b)
+                if i + 1 == CKPT_STEP:
+                    t0 = time.perf_counter()
+                    mgr.save(CKPT_STEP, s, blocking=False)
+                    save_ms = (time.perf_counter() - t0) * 1e3
+                    at_ckpt = s
+            full = s
+            t0 = time.perf_counter()
+            r_step, restored = mgr.restore_latest(
+                template=pytree.tree_map(torch.empty_like, state0))
+            torch.cuda.synchronize()
+            restore_ms = (time.perf_counter() - t0) * 1e3
+            restored_equal = r_step == CKPT_STEP and _trees_equal(restored, at_ckpt)
+            s = restored
+            for b in batches[CKPT_STEP:]:
+                s, _ = step(s, b)
+            resumed_equal = _trees_equal(s, full)
+        finally:
+            torch.use_deterministic_algorithms(False)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    nondet = sorted({str(w.message)[:100] for w in caught})
+    drift = max(float((a.float() - b.float()).abs().max())
+                for a, b in zip(pytree.leaves(full.params), pytree.leaves(state.params)))
+    print(f"  checkpoint at step {CKPT_STEP} (CheckpointManager.save(blocking=False): "
+          f"{save_ms:.1f} host ms on the caller's thread), restored into fresh tensors in "
+          f"{restore_ms:.1f} ms: bitwise equal to the state saved {restored_equal}; resumed "
+          f"to step {TRAIN_STEPS}: bitwise equal to the uninterrupted run {resumed_equal} "
+          f"(both under deterministic algorithms; warnings {nondet}); the deterministic "
+          f"run's params differ from the first run's by up to {drift:.3g}")
+    if not (restored_equal and resumed_equal):
+        raise AssertionError(f"checkpoint round trip: restored {restored_equal}, resumed "
+                             f"{resumed_equal}")
+    return dict(cfg=cfg, data=data, params=state.params, losses=losses, step_ms=step_ms,
+                device_ms=dev_ms, tokens_per_s=tokens / step_ms * 1e3, peak_gib=peak,
+                head_ms=head_ms)
+
+
+def phase_loop(train: dict, gen) -> dict:
+    """Phase 11, parts 2-3: the trained params are deployed by CW-SC and
+    by HARP at fig10's severe verify-read noise (`VERIFY_SIGMA`,
+    `default_config_for_array(32)`) and their eval loss read digitally
+    (`materialize()`) and through the arrays (`CIMExecutor.params()`),
+    with ideal converters (in float32, against the float32 read-back of
+    the same arrays: within 1e-4, `benchmarks/cim_inference.py`'s
+    contract) and at `serve_lm`'s analog defaults (bf16, `EVAL_SEQS`
+    sequences per call).  Each deploy: one host sync (counted, and seen
+    by CUDA sync debugging), exactly 1 `wv_step` per bucket-iteration and
+    3 `fwht` for HARP (0 for CW-SC: its one-hot reads take no transform);
+    HARP's rms cell error below CW-SC's.  Then the kernels on this path's
+    operands: `fwht` and `wv_step` on the first fine iteration of a HARP
+    deploy bucket of the trained w_down, `acim_vmm_tiled` on the trained
+    w_gate at the eval calls' B."""
+    import torch
+
+    from repro_torch.cim import CIMConfig, CIMExecutor, build_weight
+    from repro_torch.core import (
+        NoiseConfig,
+        WVMethod,
+        default_config_for_array,
+        pipeline,
+        rng,
+    )
+    from repro_torch.core.programmer import deploy_arrays, fill_names
+    from repro_torch.kernels.acim_vmm import ops as vmm_ops
+    from repro_torch.kernels.fwht import ops as fwht_ops
+    from repro_torch.kernels.wv_step import ops as wv_ops
+    from repro_torch.models.transformer import loss_fn
+
+    cfg, params = train["cfg"], train["params"]
+    cfg32 = cfg.replace(dtype=torch.float32)
+    ev = train["data"].global_batch_at(EVAL_STEP)._asdict()
+    n_seq = ev["tokens"].shape[0]
+
+    def eval_loss(p, c=cfg, seqs=n_seq) -> float:
+        with torch.no_grad():
+            parts = [float(loss_fn(p, {k: v[i:i + seqs] for k, v in ev.items()}, c)[0])
+                     for i in range(0, n_seq, seqs)]
+        return sum(parts) / len(parts)
+
+    clean = eval_loss(params)
+    ideal_cim = CIMConfig(dac_bits=None, adc_bits=None, sigma_read_lsb=0.0)
+    serve_cim = CIMConfig(dac_bits=6, adc_bits=10, sigma_read_lsb=0.2)
+    key = rng.PRNGKey(SEED + 11, device="cuda")
+    leaves = 7 * cfg.n_layers
+    print(f"loop: deploy the trained params at verify read noise {VERIFY_SIGMA} LSB "
+          f"(default_config_for_array(32)); eval batch {n_seq} x {ev['tokens'].shape[1]} "
+          f"(step {EVAL_STEP}); clean eval loss {clean:.6f}")
+    # Count only this path's launches: the deploys and the eval losses.
+    fwht_ops.launches = wv_ops.launches = 0
+    vmm_ops.launches = vmm_ops.launches_single = 0
+    rows = {}
+    for method in (WVMethod.CW_SC, WVMethod.HARP):
+        wv = default_config_for_array(32).replace(
+            method=method, noise=NoiseConfig(sigma_read_lsb=VERIFY_SIGMA))
+        f0, w0 = fwht_ops.launches, wv_ops.launches
+        pipeline.reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (model, rep), dbg, where = _sync_counted(
+            lambda: deploy_arrays(key, params, wv, device="cuda"))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        syncs = pipeline.host_sync_count()
+        per = len(pipeline.bucket_sizes(rep.num_columns)) * wv.max_fine_iters
+        fw, ws = fwht_ops.launches - f0, wv_ops.launches - w0
+        want_fw = 3 * per if method == WVMethod.HARP else 0
+        if syncs != 1 or dbg != 1 or fw != want_fw or ws != per:
+            raise AssertionError(
+                f"deploy {method.value}: {syncs} counted host syncs, {dbg} seen by sync "
+                f"debugging at {where}; fwht {fw}x (want {want_fw}), wv_step {ws}x "
+                f"(want {per})")
+        v0 = vmm_ops.launches
+        digital = eval_loss(model.materialize())
+        dig32 = eval_loss(fill_names(model.names, {
+            **model.digital,
+            **{n: st.materialize(dtype=torch.float32) for n, st in model.arrays.items()}}),
+            cfg32)
+        ideal = eval_loss(CIMExecutor(model, ideal_cim, rng.PRNGKey(SEED + 12, device="cuda")
+                                      ).params(), cfg32)
+        t0 = time.perf_counter()
+        noisy = eval_loss(CIMExecutor(model, serve_cim, rng.PRNGKey(SEED + 13, device="cuda")
+                                      ).params(), cfg, EVAL_SEQS)
+        torch.cuda.synchronize()
+        noisy_s = time.perf_counter() - t0
+        evals = 1 + n_seq // EVAL_SEQS
+        if vmm_ops.launches - v0 != leaves * evals:
+            raise AssertionError(f"{method.value}: acim_vmm_tiled launched "
+                                 f"{vmm_ops.launches - v0}x in the eval, want {leaves * evals}")
+        rows[method.value] = dict(rms=rep.rms_cell_error_lsb, iters=rep.mean_iterations,
+                                  wall_s=wall, digital=digital, digital_f32=dig32,
+                                  ideal=ideal, noisy=noisy)
+        print(f"  {method.value:6s}: {rep.num_columns} columns, wall {wall:.2f} s, rms "
+              f"{rep.rms_cell_error_lsb:.6f} LSB, mean iterations {rep.mean_iterations:.4f}, "
+              f"host syncs {syncs}, launches fwht {fw} wv_step {ws}; eval loss digital "
+              f"{digital:.6f} (dloss {digital - clean:+.6f}), in-array ideal {ideal:.6f} vs "
+              f"digital f32 {dig32:.6f} (|diff| {abs(ideal - dig32):.3g}), in-array at "
+              f"serve_lm's defaults {noisy:.6f} (dloss {noisy - clean:+.6f}; {noisy_s:.2f} s "
+              f"for {n_seq // EVAL_SEQS} calls of B = {EVAL_SEQS * 256 * 10} rows)")
+        if not abs(ideal - dig32) <= 1e-4:
+            raise AssertionError(f"{method.value}: ideal in-array loss {ideal} vs digital "
+                                 f"{dig32}")
+        if not all(math.isfinite(x) for x in (digital, ideal, noisy)):
+            raise AssertionError(f"{method.value}: a non-finite eval loss")
+        if method == WVMethod.HARP:
+            harp = model
+        del model
+        torch.cuda.empty_cache()
+    launches = {"fwht": fwht_ops.launches, "wv_step": wv_ops.launches,
+                "acim_vmm_tiled": vmm_ops.launches, "acim_vmm": vmm_ops.launches_single}
+    if not rows["harp"]["rms"] < rows["cw_sc"]["rms"]:
+        raise AssertionError(f"HARP's rms {rows['harp']['rms']} is not below CW-SC's "
+                             f"{rows['cw_sc']['rms']}")
+
+    # ---- the kernels at this path's operands -------------------------------
+    wv = default_config_for_array(32).replace(
+        method=WVMethod.HARP, noise=NoiseConfig(sigma_read_lsb=VERIFY_SIGMA))
+    st = harp.arrays["['layers']['w_down']"]
+    c = min(C_DEPLOY, int(st.targets.shape[0]))
+    wv_args, p = _first_fine_iteration(key, st, wv, c)
+    kcases = {
+        "wv_step": [dict(_wv_case(wv_args, p),
+                         case=f"trained w_down, first fine iteration, C={c}")],
+        "fwht": [dict(phase_fwht(wv.n_cells, gen, x=wv_args[2]),
+                      case=f"trained w_down, first verify's conductances, C={c}")],
+    }
+    w = build_weight(harp.arrays["['layers']['w_gate']"], serve_cim,
+                     rng.PRNGKey(0, device="cuda")).layer(0)
+    vmm = {"eval noisy": _vmm_case(w, serve_cim, EVAL_SEQS * 256, w.n_tiles, False, gen,
+                                   "eval noisy"),
+           "eval ideal raw": _vmm_case(w, serve_cim, 1, w.n_tiles, True, gen,
+                                       "eval ideal raw", rows=n_seq * 256)}
+    _print_vmm(w, serve_cim, vmm)
+    for name, rr in kcases.items():
+        r = rr[0]
+        print(f"  {name} on {r['case']}: ms={r['ms']:.4f} ({r['stream_ms']:.4f}) plain_ms="
+              f"{r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
+              f"max_abs_err={r['max_abs_err']:.3g}")
+    return dict(rows=rows, clean=clean, launches=launches, kcases=kcases, vmm=vmm)
+
+
+def phase_fig10(gen) -> dict:
+    """Phase 12: `benchmarks/fig10_robustness.py` on the card.  Its tiny
+    LM (2 layers, d_model 64, vocab 64, float32) trained for
+    `FIG10_STEPS` steps at lr 1e-2 on `SyntheticLM(64, 64, 16, seed 3)`,
+    deployed by CW-SC, HD-PV and HARP (`default_config_for_array(32)`,
+    key 42) at read noise 0.1, 0.4 and 0.7 LSB; its trends must hold at
+    0.7: HD-PV's and HARP's rms cell error below CW-SC's, their dloss
+    within CW-SC's + 0.01.  Then the kernels on this path's operands:
+    the HARP deploy at 0.7 LSB again, through `deploy_arrays`, and `fwht`
+    and `wv_step` on the first fine iteration of each of its buckets (its
+    leaves' columns packed in order, as `pipeline.program_packed_columns`
+    packs them)."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import (
+        NoiseConfig,
+        WVMethod,
+        default_config_for_array,
+        pipeline,
+        rng,
+    )
+    from repro_torch.core.programmer import deploy_arrays, deploy_params
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels.acim_vmm import ops as vmm_ops
+    from repro_torch.kernels.fwht import ops as fwht_ops
+    from repro_torch.kernels.wv_step import ops as wv_ops
+    from repro_torch.models import ModelConfig
+    from repro_torch.models.transformer import loss_fn
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.training import init_train_state, make_train_step
+
+    cfg = ModelConfig(name="bench-lm", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
+                      head_dim=16, d_ff=128, vocab_size=64, dtype=torch.float32,
+                      attn_chunk_q=32, attn_chunk_kv=32, remat=False)
+    data = SyntheticLM(vocab_size=64, seq_len=64, global_batch=16, seed=3, device="cuda")
+    opt = AdamWConfig(lr_peak=1e-2)
+    state = init_train_state(0, cfg, opt, device="cuda")
+    step = make_train_step(cfg, opt, total_steps=FIG10_STEPS)
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(FIG10_STEPS):
+        state, m = step(state, data.global_batch_at(i)._asdict())
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    ev = data.global_batch_at(EVAL_STEP)._asdict()
+
+    def eval_loss(p) -> float:
+        with torch.no_grad():
+            return float(loss_fn(p, ev, cfg)[0])
+
+    clean = eval_loss(state.params)
+    print(f"fig10: tiny LM trained {FIG10_STEPS} steps in {train_s:.2f} s (data included); "
+          f"loss {float(losses[0]):.4f} -> {float(losses[-1]):.4f}; clean eval loss "
+          f"{clean:.4f}")
+    fwht_ops.launches = wv_ops.launches = 0
+    vmm_ops.launches = vmm_ops.launches_single = 0
+    dloss, rms = {}, {}
+    t0 = time.perf_counter()
+    for sigma in (0.1, 0.4, VERIFY_SIGMA):
+        for m in (WVMethod.CW_SC, WVMethod.HD_PV, WVMethod.HARP):
+            wv = default_config_for_array(32).replace(
+                method=m, noise=NoiseConfig(sigma_read_lsb=sigma))
+            prog, rep = deploy_params(rng.PRNGKey(42, device="cuda"), state.params, wv,
+                                      device="cuda")
+            dloss[(sigma, m.value)] = eval_loss(prog) - clean
+            rms[(sigma, m.value)] = rep.rms_cell_error_lsb
+            print(f"  fig10.n32.sigma{sigma:g}.{m.value}: dloss={dloss[(sigma, m.value)]:+.4f} "
+                  f"rms_cell={rep.rms_cell_error_lsb:.4f}")
+    torch.cuda.synchronize()
+    deploy_s = time.perf_counter() - t0
+    launches = {"fwht": fwht_ops.launches, "wv_step": wv_ops.launches,
+                "acim_vmm_tiled": vmm_ops.launches, "acim_vmm": vmm_ops.launches_single}
+    print(f"  9 deploys in {deploy_s:.2f} s; launches {launches}")
+    hi = VERIFY_SIGMA
+    for m in ("hd_pv", "harp"):
+        if not rms[(hi, m)] < rms[(hi, "cw_sc")]:
+            raise AssertionError(f"fig10: {m} rms {rms[(hi, m)]} not below cw_sc's "
+                                 f"{rms[(hi, 'cw_sc')]} at {hi} LSB")
+        if not dloss[(hi, m)] < dloss[(hi, "cw_sc")] + 0.01:
+            raise AssertionError(f"fig10: {m} dloss {dloss[(hi, m)]} not within cw_sc's "
+                                 f"{dloss[(hi, 'cw_sc')]} + 0.01 at {hi} LSB")
+    if not (launches["fwht"] > 0 and launches["wv_step"] > 0):
+        raise AssertionError(f"fig10: the deploys launched {launches}")
+
+    # ---- the kernels at this path's operands -------------------------------
+    wv = default_config_for_array(32).replace(
+        method=WVMethod.HARP, noise=NoiseConfig(sigma_read_lsb=hi))
+    key = rng.PRNGKey(42, device="cuda")
+    model, rep = deploy_arrays(key, state.params, wv, device="cuda")
+    sts = list(model.arrays.values())
+    uids = np.concatenate([st.uids for st in sts])
+    targets, d2d = torch.cat([st.targets for st in sts]), torch.cat([st.d2d for st in sts])
+    kcases = {"fwht": [], "wv_step": []}
+    off = 0
+    for size in pipeline.bucket_sizes(rep.num_columns):
+        take = min(size, rep.num_columns - off)
+        bucket = types.SimpleNamespace(uids=uids[off:off + take],
+                                       targets=targets[off:off + take],
+                                       d2d=d2d[off:off + take])
+        wv_args, p = _first_fine_iteration(key, bucket, wv, take)
+        what = f"fig10 HARP at {hi} LSB, bucket of C={size}"
+        kcases["wv_step"].append(dict(_wv_case(wv_args, p),
+                                      case=f"{what}, first fine iteration"))
+        kcases["fwht"].append(dict(phase_fwht(wv.n_cells, gen, x=wv_args[2]),
+                                   case=f"{what}, first verify's conductances"))
+        off += take
+    for name, rr in kcases.items():
+        for r in rr:
+            print(f"  {name} on {r['case']}: ms={r['ms']:.4f} ({r['stream_ms']:.4f}) "
+                  f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
+                  f"({r['bound_by']}) library_ms="
+                  f"{'-' if r['library_ms'] is None else format(r['library_ms'], '.4f')} "
+                  f"max_abs_err={r['max_abs_err']:.3g}")
+    return dict(dloss=dloss, rms=rms, clean=clean, launches=launches, train_s=train_s,
+                kcases=kcases)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=4,
                     help="qwen3-0.6b depth to deploy (28 = the whole model)")
+    ap.add_argument("--train-layers", type=int, default=2,
+                    help="qwen3-0.6b depth to train and deploy in phase 11")
     args = ap.parse_args()
     sys.stdout.reconfigure(line_buffering=True)
     t_start = time.perf_counter()
@@ -1606,19 +2072,30 @@ def main() -> int:
     stamp("faulty silicon phase")
     phase_fault_guard()
     faults = phase_faults(dep, clean, args.layers, gen)
+    deploy_launches = dep["launches"]
+    del dep, clean
+    torch.cuda.empty_cache()
+    stamp("train phase")
+    train = phase_train(args.train_layers)
+    stamp("train -> write-and-verify -> eval loss phase")
+    loop = phase_loop(train, gen)
+    del train
+    torch.cuda.empty_cache()
+    stamp("fig10 phase")
+    fig10 = phase_fig10(gen)
     stamp("done")
 
     main_fwht, main_wv = k[("fwht", 32)], k[("wv_step", 32, True)]
     line = {"kernels": [
         dict(name="fwht", route="cuda", source="src/repro_torch/kernels/csrc/fwht.cu",
              replaces="src/repro/kernels/fwht/fwht.py:62",
-             launches=dep["launches"]["fwht"], max_abs_err=main_fwht["max_abs_err"],
+             launches=deploy_launches["fwht"], max_abs_err=main_fwht["max_abs_err"],
              ms=main_fwht["ms"], plain_ms=main_fwht["plain_ms"],
              bound_ms=main_fwht["bound_ms"], bound_by=main_fwht["bound_by"],
              library_ms=main_fwht["library_ms"]),
         dict(name="wv_step", route="cuda", source="src/repro_torch/kernels/csrc/wv_step.cu",
              replaces="src/repro/kernels/wv_step/wv_step.py:99",
-             launches=dep["launches"]["wv_step"], max_abs_err=main_wv["max_abs_err"],
+             launches=deploy_launches["wv_step"], max_abs_err=main_wv["max_abs_err"],
              ms=main_wv["ms"], plain_ms=main_wv["plain_ms"],
              bound_ms=main_wv["bound_ms"], bound_by=main_wv["bound_by"],
              library_ms=None),
@@ -1636,6 +2113,17 @@ def main() -> int:
             {k: r[k] for k in ("case", "ms", "plain_ms", "bound_ms", "bound_by",
                                "library_ms", "max_abs_err")}
             for r in cont["sub_kernels"][entry["name"]]]
+        # Phase 11 (the trained model's deploys) and phase 12 (fig10's).
+        entry["launches_train"] = loop["launches"][entry["name"]]
+        entry["launches_fig10"] = fig10["launches"][entry["name"]]
+        entry["train_case"] = [
+            {k: r[k] for k in ("case", "ms", "plain_ms", "bound_ms", "bound_by",
+                               "library_ms", "max_abs_err")}
+            for r in loop["kcases"][entry["name"]]]
+        entry["fig10_case"] = [
+            {k: r[k] for k in ("case", "ms", "plain_ms", "bound_ms", "bound_by",
+                               "library_ms", "max_abs_err")}
+            for r in fig10["kcases"][entry["name"]]]
     for name, case, src_line in (("acim_vmm_tiled", "decode", 166),
                                  ("acim_vmm", "one tile", 230)):
         r = vmm[case]
@@ -1644,6 +2132,7 @@ def main() -> int:
         if tiled:
             cases.update(cont["vmm"])
             cases["remapped decode (phase 10)"] = faults["vmm"]
+            cases.update({f"{c} (phase 11)": o for c, o in loop["vmm"].items()})
         line["kernels"].append(dict(
             name=name, route="cuda", source="src/repro_torch/kernels/csrc/acim_vmm.cu",
             replaces=f"src/repro/kernels/acim_vmm/acim_vmm.py:{src_line}",
@@ -1653,6 +2142,8 @@ def main() -> int:
             shape=f"B={r['b']} T={r['tiles']}", adc_flips=r["flips"],
             launches_continuous=cont["launches"][name],
             launches_faults=faults["launches"][name],
+            launches_train=loop["launches"][name],
+            launches_fig10=fig10["launches"][name],
             # The same kernel's other rows of phases 7 and 9 (route "raw" = f32).
             other_cases={c: dict(ms=o["ms"], bound_ms=o["bound_ms"], bound_by=o["bound_by"],
                                  plain_ms=o["plain_ms"], library_ms=o["library_ms"],

@@ -8,6 +8,9 @@ crosses as its uint16 bit pattern.  `key_from_numpy` carries a raw
 ``uint32[2]`` threefry key (or a batch of them).  `deployed_from_numpy`
 carries a whole deployment (programmed conductances and all), so the two
 packages can serve the same arrays without deploying twice.
+`train_state_from_numpy` carries training state (params and AdamW
+moments) across, and `tree_to_numpy` carries any tree of the port's
+tensors back.
 """
 
 from __future__ import annotations
@@ -18,19 +21,21 @@ import numpy as np
 import torch
 
 __all__ = ["params_from_numpy", "key_from_numpy", "tensor_from_numpy",
-           "deployed_from_numpy", "cell_state_from_numpy"]
+           "deployed_from_numpy", "cell_state_from_numpy",
+           "train_state_from_numpy", "tensor_to_numpy", "tree_to_numpy"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
            "float32": torch.float32, "float64": torch.float64}
 
 
 def tensor_from_numpy(a, device="cuda") -> torch.Tensor:
-    a = np.asarray(a)
+    # np.array(order="C") copies and keeps a 0-d array 0-d, where
+    # np.ascontiguousarray would make it (1,).
+    a = np.array(a, order="C")
     if a.dtype.name == "bfloat16":
-        bits = np.ascontiguousarray(a).view(np.int16)
-        t = torch.from_numpy(bits.copy()).view(torch.bfloat16)
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
     else:
-        t = torch.from_numpy(np.ascontiguousarray(a).copy())
+        t = torch.from_numpy(a)
     return t.to(device)
 
 
@@ -132,3 +137,43 @@ def cell_state_from_numpy(state, device="cuda"):
 
     return CellState(**{f: tensor_from_numpy(field(f), device)
                         for f in CellState._fields})
+
+
+def train_state_from_numpy(state, device="cuda"):
+    """Carry the reference's `TrainState` (numpy leaves, e.g. through
+    ``jax.tree.map(np.asarray, state)``) across to the port's: any object
+    or mapping with ``params`` and ``opt``, whose ``opt`` has ``step``,
+    ``m`` and ``v``."""
+    from repro_torch.optim.adamw import AdamWState
+    from repro_torch.training import TrainState
+
+    def field(obj, name):
+        return obj[name] if isinstance(obj, dict) else getattr(obj, name)
+
+    opt = field(state, "opt")
+    return TrainState(
+        params=params_from_numpy(field(state, "params"), device),
+        opt=AdamWState(
+            step=tensor_from_numpy(np.asarray(field(opt, "step"), np.int32), device),
+            m=params_from_numpy(field(opt, "m"), device),
+            v=params_from_numpy(field(opt, "v"), device),
+        ),
+    )
+
+
+def tensor_to_numpy(x) -> np.ndarray:
+    """A tensor (or array-like) as a numpy array on the host.  numpy has
+    no bfloat16, so a bf16 tensor comes out widened to float32, which is
+    exact: cast it back on the other side (``jnp.asarray(a, jnp.bfloat16)``)."""
+    if not isinstance(x, torch.Tensor):
+        return np.asarray(x)
+    x = x.detach().cpu()
+    return (x.to(torch.float32) if x.dtype == torch.bfloat16 else x).numpy()
+
+
+def tree_to_numpy(tree: Any) -> Any:
+    """The same tree (dicts, lists, tuples, named tuples) with numpy
+    leaves on the host, each by `tensor_to_numpy`."""
+    from repro_torch import pytree
+
+    return pytree.tree_map(tensor_to_numpy, tree)

@@ -40,6 +40,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch import pytree
 from repro_torch.quant import (
     QuantConfig,
     dequantize_weight,
@@ -225,19 +226,9 @@ def flatten_with_names(params: Any, prefix: str = "") -> list[tuple[str, Any]]:
     """Leaves of a nested dict/list/tuple in the reference's pytree order.
 
     Dict keys are visited sorted; names are the reference's `keystr`
-    form, e.g. ``['layers']['wq']`` or ``[0]``.
+    form, e.g. ``['layers']['wq']`` or ``[0]`` (`pytree.leaves_with_path`).
     """
-    if isinstance(params, dict):
-        out = []
-        for k in sorted(params):
-            out += flatten_with_names(params[k], f"{prefix}[{k!r}]")
-        return out
-    if isinstance(params, (list, tuple)):
-        out = []
-        for i, v in enumerate(params):
-            out += flatten_with_names(v, f"{prefix}[{i}]")
-        return out
-    return [(prefix, params)]
+    return pytree.leaves_with_path(params, prefix)
 
 
 def names_tree(params: Any, prefix: str = "") -> Any:

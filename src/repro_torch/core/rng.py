@@ -28,7 +28,8 @@ import numpy as np
 import torch
 
 __all__ = ["PRNGKey", "batch_ndim", "fold_col_keys", "split", "fold_in",
-           "random_bits", "uniform", "normal", "erfinv_f32", "categorical"]
+           "random_bits", "uniform", "normal", "erfinv_f32", "categorical",
+           "randint"]
 
 _MASK = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -110,6 +111,36 @@ def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
         tail = shape[1:]
         return _hash_counts(key, int(np.prod(tail, dtype=np.int64))).reshape(shape)
     return _hash_counts(key, int(np.prod(shape, dtype=np.int64))).reshape(shape)
+
+
+def _mul32(a: torch.Tensor, b) -> torch.Tensor:
+    """``a * b mod 2^32`` for uint32 words in int64, in 16-bit halves of
+    `b` so that no int64 product overflows."""
+    lo = a * (b & 0xFFFF)
+    hi = ((a * (b >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _MASK
+
+
+def randint(key: torch.Tensor, shape, minval: int, maxval: int) -> torch.Tensor:
+    """`jax.random.randint(key, shape, minval, maxval)` (int32, legacy
+    layout): two 32-bit draws per value, combined modulo the span.
+
+    The reference's arithmetic in uint32, every product and sum wrapping
+    at 2^32 (the multiplier's square too): the span is ``maxval -
+    minval`` (1 where ``maxval <= minval``), ``multiplier = (2^16 mod
+    span)^2 mod span``, and the value ``minval + ((hi mod span) *
+    multiplier + lo mod span) mod span``.
+    """
+    minval, maxval = int(minval), int(maxval)
+    if not (-2**31 <= minval < 2**31 and -2**31 <= maxval < 2**31):
+        raise ValueError(f"randint bounds must fit int32, got [{minval}, {maxval})")
+    k1, k2 = split(key)
+    hi, lo = random_bits(k1, shape), random_bits(k2, shape)
+    span = (maxval - minval) & _MASK if maxval > minval else 1
+    mult = ((((1 << 16) % span) ** 2) & _MASK) % span
+    offset = (_mul32(hi % span, mult) + lo % span) & _MASK
+    out = (offset % span + minval) & _MASK
+    return torch.where(out >= 2**31, out - 2**32, out).to(torch.int32)
 
 
 def _unit_floats(key: torch.Tensor, shape) -> torch.Tensor:

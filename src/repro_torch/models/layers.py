@@ -16,7 +16,7 @@ from repro_torch.cim.tile import CIMWeight
 from repro_torch.core.numerics import true_div
 
 __all__ = ["matmul", "rms_norm", "head_rms_norm", "swiglu", "rope_freqs",
-           "apply_rope"]
+           "apply_rope", "cross_entropy_loss"]
 
 
 def matmul(x: torch.Tensor, w) -> torch.Tensor:
@@ -69,3 +69,14 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
+                       mask: torch.Tensor) -> torch.Tensor:
+    """Mean next-token CE over masked positions; logits (B, S, V), taken
+    in float32."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None].to(torch.int64))[..., 0]
+    nll = (logz - gold) * mask
+    return torch.sum(nll) / torch.clamp_min(torch.sum(mask), 1.0)

@@ -10,7 +10,9 @@ reference's; parity tests carry the reference's params across with
 `forward` is the reference's homogeneous dense stack (GQA, qk-norm,
 RoPE), its `lax.scan` over layers a Python loop over `slice_layer`.
 Other blocks (MoE, rwkv6, hymba, cross-attention, multi-codebook heads,
-stub frontends) raise `NotImplementedError`.
+stub frontends) raise `NotImplementedError`.  `loss_fn` is the
+reference's next-token loss over `forward`, differentiable by autograd
+and, on a served tree of `CIMWeight` leaves, the in-array eval loss.
 """
 
 from __future__ import annotations
@@ -24,10 +26,17 @@ from repro_torch.cim.tile import CIMWeight
 
 from .attention import chunked_causal_attention
 from .config import ModelConfig
-from .layers import apply_rope, head_rms_norm, matmul, rms_norm, swiglu
+from .layers import (
+    apply_rope,
+    cross_entropy_loss,
+    head_rms_norm,
+    matmul,
+    rms_norm,
+    swiglu,
+)
 
 __all__ = ["init_params", "slice_layer", "embed_inputs", "output_logits",
-           "forward"]
+           "forward", "loss_fn"]
 
 
 def _truncated_normal(gen, shape, std, dtype, device) -> torch.Tensor:
@@ -171,3 +180,19 @@ def forward(params, batch: dict, cfg: ModelConfig, *,
             vs.append(v)
     caches = {"k": torch.stack(ks), "v": torch.stack(vs)} if collect_cache else None
     return output_logits(params, x, cfg), aux / cfg.n_layers, caches
+
+
+def loss_fn(params, batch: dict, cfg: ModelConfig, mesh=None):
+    """Next-token CE (+ router aux); returns (loss, metrics).
+
+    batch: tokens, targets (B, S) integer and mask (B, S) float32.  Dense
+    configs only: multi-codebook heads raise, as `forward` does.
+    """
+    if mesh is not None:
+        raise NotImplementedError("mesh= is not ported (ROADMAP.md A5)")
+    if cfg.n_codebooks > 1:
+        raise NotImplementedError(f"multi-codebook heads are not ported ({cfg.name})")
+    logits, aux, _ = forward(params, batch, cfg)
+    ce = cross_entropy_loss(logits, batch["targets"], batch["mask"])
+    loss = ce + cfg.router_aux_coef * aux
+    return loss, {"loss": loss, "ce": ce, "router_aux": aux}

@@ -13,6 +13,8 @@ from typing import Any
 
 import torch
 
+from repro_torch import pytree
+
 __all__ = ["MetricRegistry", "registry", "fetch", "inc", "value", "snapshot",
            "reset"]
 
@@ -49,28 +51,6 @@ class MetricRegistry:
 registry = MetricRegistry()
 
 
-def _leaves(tree: Any, out: list) -> None:
-    if isinstance(tree, torch.Tensor):
-        out.append(tree)
-    elif isinstance(tree, dict):
-        for k in sorted(tree):
-            _leaves(tree[k], out)
-    elif isinstance(tree, (list, tuple)):
-        for x in tree:
-            _leaves(x, out)
-
-
-def _rebuild(tree: Any, it) -> Any:
-    if isinstance(tree, torch.Tensor):
-        return next(it)
-    if isinstance(tree, dict):
-        vals = {k: _rebuild(tree[k], it) for k in sorted(tree)}
-        return {k: vals[k] for k in tree}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_rebuild(x, it) for x in tree)
-    return tree
-
-
 def fetch(tree: Any, counter: str | None = None) -> Any:
     """Copy every tensor of a nested dict/list/tuple to numpy in ONE transfer.
 
@@ -80,8 +60,8 @@ def fetch(tree: Any, counter: str | None = None) -> Any:
     """
     if counter is not None:
         registry.inc(counter)
-    leaves: list[torch.Tensor] = []
-    _leaves(tree, leaves)
+    every = pytree.leaves(tree)
+    leaves = [t for t in every if isinstance(t, torch.Tensor)]
     if not leaves:
         return tree
     flat = torch.cat([t.reshape(-1).to(torch.float32) for t in leaves])
@@ -90,7 +70,9 @@ def fetch(tree: Any, counter: str | None = None) -> Any:
     for t in leaves:
         parts.append(host[off: off + t.numel()].reshape(tuple(t.shape)))
         off += t.numel()
-    return _rebuild(tree, iter(parts))
+    it = iter(parts)
+    return pytree.unflatten(tree, [next(it) if isinstance(x, torch.Tensor) else x
+                                   for x in every])
 
 
 def inc(name: str, delta: float = 1.0) -> None:

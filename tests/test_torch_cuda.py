@@ -26,7 +26,14 @@ and the spare-candidate ranking on tied gave-up counts against the CPU's
 stable sort.  The continuous-batching scheduler
 serves a tiny deployment on the card with its dispatches under
 `torch.cuda.set_sync_debug_mode("error")`: one host sync per decode
-step, no hidden one, and the mode restored.
+step, no hidden one, and the mode restored.  Training and the paper's
+loop: `rng.randint` and `SyntheticLM` batches on the card equal to the
+CPU's bitwise; three train steps on the card against the CPU on the same
+state (gradients within 1e-4 of each leaf's max, losses within 1e-5,
+params within 5e-4 where the gradient is not tiny); the eval loss served
+through `acim_vmm_tiled` against the same loss with the wrapper replaced
+by its plain version (1e-5 with ideal converters, 1e-3 with the ADC and
+read noise on).
 """
 
 import numpy as np
@@ -373,3 +380,116 @@ def test_spare_candidates_on_card_match_cpu(cuda, c, s):
     t_card = remap.build_table(counts.to(cuda), got, spare.to(cuda))
     for a, b in zip(t_card, t_cpu):
         torch.testing.assert_close(a.cpu(), b, rtol=0, atol=0)
+
+
+# Training and the paper's loop (train, deploy, eval loss) on the card.
+_TINY = dict(name="bench-lm", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
+             head_dim=16, d_ff=128, vocab_size=64, attn_chunk_q=32,
+             attn_chunk_kv=32, remat=False)
+_DATA = dict(vocab_size=64, seq_len=64, global_batch=16, seed=3)
+
+
+def _tiny_cfg():
+    from repro_torch.models import ModelConfig
+
+    return ModelConfig(dtype=torch.float32, **_TINY)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("seed,shape,lo,hi", [(0, (8,), 0, 151936), (5, (7, 33), -5, 1000003),
+                                              (2, (9,), 10, 3), (3, (16, 64), 0, 16)])
+def test_randint_on_card_matches_cpu(cuda, seed, shape, lo, hi):
+    from repro_torch.core import rng
+
+    got = rng.randint(rng.PRNGKey(seed, device="cuda"), shape, lo, hi)
+    want = rng.randint(rng.PRNGKey(seed, device="cpu"), shape, lo, hi)
+    assert got.device.type == "cuda" and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("data", [_DATA, dict(vocab_size=151936, seq_len=256, global_batch=8,
+                                              seed=0)], ids=["fig10", "qwen3-0.6b"])
+def test_synthetic_batches_on_card_match_cpu(cuda, data):
+    from repro_torch.data import SyntheticLM
+
+    for step in (0, 1, 10_000):
+        got = SyntheticLM(**data, device="cuda").global_batch_at(step)
+        want = SyntheticLM(**data, device="cpu").global_batch_at(step)
+        for a, b in zip(got, want):
+            assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
+
+
+@pytest.mark.requires_cuda
+def test_train_steps_on_card_match_cpu(cuda):
+    """The same state and batches through 3 train steps on the card and on
+    the CPU: gradients per leaf within 1e-4 of its max, losses within
+    1e-5, params within 5e-4 where the gradient exceeds 1e-4 of its
+    leaf's max (Adam's first steps are nearly sign(g), see
+    tests/test_torch_train.py)."""
+    from repro_torch import pytree
+    from repro_torch.data import SyntheticLM
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.training import _grads_of, init_train_state, make_train_step
+
+    cfg, opt = _tiny_cfg(), AdamWConfig(lr_peak=1e-2)
+    cpu_state = init_train_state(0, cfg, opt, device="cpu")
+    card_state = pytree.tree_map(lambda t: t.to("cuda"), cpu_state)
+    step = make_train_step(cfg, opt, total_steps=20)
+    held = None
+    for i in range(3):
+        bc = SyntheticLM(**_DATA, device="cpu").global_batch_at(i)._asdict()
+        bg = SyntheticLM(**_DATA, device="cuda").global_batch_at(i)._asdict()
+        _, g_cpu = _grads_of(cpu_state.params, bc, cfg)
+        _, g_card = _grads_of(card_state.params, bg, cfg)
+        big = []
+        for a, b in zip(pytree.leaves(g_cpu), pytree.leaves(g_card)):
+            err = float((b.cpu() - a).abs().max() / a.abs().max())
+            assert err <= 1e-4, (i, err)
+            big.append(a.abs() > 1e-4 * a.abs().max())
+        held = big if held is None else [h & n for h, n in zip(held, big)]
+        cpu_state, m_cpu = step(cpu_state, bc)
+        card_state, m_card = step(card_state, bg)
+        assert abs(float(m_card["loss"]) - float(m_cpu["loss"])) <= 1e-5
+    for a, b, h in zip(pytree.leaves(cpu_state.params), pytree.leaves(card_state.params), held):
+        assert b.device.type == "cuda"
+        assert float((b.cpu() - a).abs()[h].max()) <= 5e-4
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("cim", [dict(dac_bits=None, adc_bits=None, sigma_read_lsb=0.0),
+                                 dict(dac_bits=6, adc_bits=10, sigma_read_lsb=0.7)],
+                         ids=["ideal", "noisy"])
+def test_in_array_eval_loss_kernel_vs_plain(cuda, cim, monkeypatch):
+    """The eval loss served through the arrays: with `acim_vmm_tiled`
+    launching its kernel, and with the same wrapper replaced by its plain
+    version on the same card tensors.  Ideal converters: within 1e-5;
+    DAC 6 / ADC 10 bits and 0.7 LSB read noise: within 1e-3 (a few ADC
+    codes flip, `tests/acim_flips.py`)."""
+    from repro_torch.cim import CIMConfig, CIMExecutor
+    from repro_torch.core import NoiseConfig, WVMethod, default_config_for_array, rng
+    from repro_torch.core.programmer import deploy_arrays
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import loss_fn
+
+    cfg = _tiny_cfg()
+    params = init_params(0, cfg, device="cuda")
+    wv = default_config_for_array(32).replace(method=WVMethod.HARP,
+                                              noise=NoiseConfig(sigma_read_lsb=0.7))
+    model, _ = deploy_arrays(rng.PRNGKey(42, device="cuda"), params, wv, device="cuda")
+    batch = SyntheticLM(**_DATA, device="cuda").global_batch_at(10_000)._asdict()
+
+    def eval_loss() -> float:
+        ex = CIMExecutor(model, CIMConfig(**cim), rng.PRNGKey(7, device="cuda"))
+        with torch.no_grad():
+            return float(loss_fn(ex.params(), batch, cfg)[0])
+
+    before = vmm_ops.launches
+    kernel = eval_loss()
+    assert vmm_ops.launches - before == 7 * cfg.n_layers
+    monkeypatch.setattr(vmm_ops, "acim_vmm_tiled",
+                        lambda x, gp, gn, *, bc, adc_bits, full_scale, noise=None:
+                        vmm_ref.acim_vmm_tiled(x, gp, gn, bc, adc_bits, full_scale, noise))
+    plain = eval_loss()
+    assert np.isfinite(kernel)
+    assert abs(kernel - plain) <= (1e-5 if cim["adc_bits"] is None else 1e-3), (kernel, plain)

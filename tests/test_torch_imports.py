@@ -1,6 +1,7 @@
-"""The port stands alone: no file of `src/repro_torch/` or `chip_smoke.py`
-imports JAX or the JAX reference package, and every module of the port
-imports here, where there is no CUDA toolkit and no card."""
+"""The port stands alone: no file of `src/repro_torch/`, `chip_smoke.py` or
+the port's examples (`examples/torch_*.py`) imports JAX or the JAX
+reference package, and every module of the port imports here, where
+there is no CUDA toolkit and no card."""
 
 import ast
 import importlib
@@ -10,7 +11,8 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+         + sorted((ROOT / "examples").glob("torch_*.py")))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -58,6 +60,18 @@ FAULT_SLICE_MODULES = (
 )
 
 
-@pytest.mark.parametrize("rel", SLICE_MODULES + FAULT_SLICE_MODULES)
+# The modules of the training slice (data, optimizer, train and eval
+# steps, checkpoints) and its example.
+TRAIN_SLICE_MODULES = (
+    "data/synthetic.py", "optim/adamw.py", "optim/schedule.py", "training.py",
+    "checkpoint/checkpoint.py",
+)
+
+
+@pytest.mark.parametrize("rel", SLICE_MODULES + FAULT_SLICE_MODULES + TRAIN_SLICE_MODULES)
 def test_slice_module_is_checked(rel):
     assert PORT / rel in FILES
+
+
+def test_port_example_is_checked():
+    assert ROOT / "examples" / "torch_deploy_rram.py" in FILES
