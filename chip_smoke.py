@@ -22,8 +22,8 @@ CUDA toolkit.  Phases, each of which fails the run:
    `--layers` deep, random weights from `SEED`) is programmed by HARP
    through `deploy_arrays`; both kernels must have launched (exactly 3
    `fwht` and 1 `wv_step` per bucket and iteration), the deploy must make
-   one host sync, and a materialized leaf must be finite with the right
-   shape and dtype;
+   one host sync (counted, and the only one CUDA sync debugging sees),
+   and a materialized leaf must be finite with the right shape and dtype;
 6. breakdown: the parts of one HARP bucket-iteration (keys, read noise,
    write noise, verify, kernels) timed on their own;
 7. acim_vmm: at the serving path's shapes (layer 0 of the deployed w_gate
@@ -108,7 +108,20 @@ CUDA toolkit.  Phases, each of which fails the run:
    220 steps and deployed by CW-SC, HD-PV and HARP at 0.1, 0.4 and 0.7
    LSB; at 0.7 HD-PV's and HARP's rms must be below CW-SC's and their
    dloss within CW-SC's + 0.01; `fwht` and `wv_step` are held and timed
-   on the operands of each bucket the HARP deploy at 0.7 LSB runs.
+   on the operands of each bucket the HARP deploy at 0.7 LSB runs;
+13. registry models at full width, through the port's entry points:
+   llama3.2-1b (`configs.get_config`, `REGISTRY_LAYERS` of 16 layers)
+   deployed by HARP and served by `examples/torch_serve_lm.py --analog
+   --continuous`'s own functions at its defaults; the deploy makes one
+   host sync and folds per-tile health, digests, counters and ledger
+   rows that must agree with its report; the stream is held as phase
+   9's; `obs.fleet_status()` feeds an `SLOPolicy` (p99 latency, gave-up
+   cells) whose every metric must resolve; the trace is rendered by the
+   port's `obs.report` and `obs.dashboard`.  smollm-360m (d_model 960,
+   kv_dim 320) is deployed and served with ideal converters against its
+   digital forward.  `fwht`, `wv_step` and `acim_vmm_tiled` are held and
+   timed on this phase's operands (llama's w_down and w_gate, smollm's
+   partial-tile wq and 320-wide wk).
 
 The line before the last is a JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -144,6 +157,8 @@ EVAL_STEP = 10_000               # phases 11-12: the eval batch (fig10's step)
 EVAL_SEQS = 2                    # phase 11: sequences per noisy in-array eval call
 VERIFY_SIGMA = 0.7               # phases 11-12: fig10's severe verify read noise, LSB
 FIG10_STEPS = 220                # phase 12: `fig10_robustness._train_tiny_lm`'s steps
+REGISTRY_LAYERS = 1              # phase 13: depth of llama3.2-1b and smollm-360m
+REGISTRY_REQUESTS = 16           # phase 13: `torch_serve_lm.py`'s default request count
 
 
 def _nvidia_smi() -> str:
@@ -355,7 +370,8 @@ def phase_deploy(layers: int) -> dict:
     wv_ops.launches = 0
     pipeline.reset_counters()
     t0 = time.perf_counter()
-    model, report = deploy_arrays(key, params, wv_cfg, device="cuda")
+    (model, report), dbg_syncs, dbg_where = _sync_counted(
+        lambda: deploy_arrays(key, params, wv_cfg, device="cuda"))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"fwht": fwht_ops.launches, "wv_step": wv_ops.launches}
@@ -373,7 +389,7 @@ def phase_deploy(layers: int) -> dict:
           f"energy = {report.total_energy_pj / 1e6:.3f} uJ")
     print(f"  wall_s={wall:.3f} peak_device_mem_gib={peak_gib:.2f}")
     print(f"  launches fwht={launches['fwht']} wv_step={launches['wv_step']} "
-          f"host_syncs={syncs}")
+          f"host_syncs={syncs} (sync debugging saw {dbg_syncs} at {dbg_where})")
 
     per_bucket_iter = buckets * wv_cfg.max_fine_iters
     if launches["fwht"] != 3 * per_bucket_iter or launches["wv_step"] != per_bucket_iter:
@@ -381,8 +397,9 @@ def phase_deploy(layers: int) -> dict:
             f"deploy launched fwht {launches['fwht']}x and wv_step "
             f"{launches['wv_step']}x; HARP needs 3 and 1 per bucket-iteration "
             f"({per_bucket_iter})")
-    if syncs != 1:
-        raise AssertionError(f"deploy made {syncs} host syncs, expected 1")
+    if syncs != 1 or dbg_syncs != 1:
+        raise AssertionError(f"deploy made {syncs} counted host syncs, {dbg_syncs} seen by "
+                             f"sync debugging, expected 1 and 1")
     if not 0.0 < report.rms_cell_error_lsb < 0.5:
         raise AssertionError(f"rms cell error {report.rms_cell_error_lsb} out of range")
 
@@ -545,7 +562,10 @@ def _vmm_case(w, cfg, tokens: int, tiles: int, raw: bool, gen, case: str,
     d = gp - gn
     xf = torch.randn(tokens, w.rows_in, device="cuda", generator=gen)
     planes, _ = _dac_stream(xf, cfg)
-    x = planes.reshape(-1, w.rows_in)[:, : tiles * r].contiguous()
+    # Zero rows pad a partial last tile, as `cim.mvm.cim_matmul` pads them.
+    x = planes.reshape(-1, w.rows_in)
+    x = torch.nn.functional.pad(x, (0, max(0, tiles * r - w.rows_in)))
+    x = x[:, : tiles * r].contiguous()
     b = x.shape[0]
     if raw:
         b = rows or b
@@ -587,11 +607,11 @@ def _vmm_case(w, cfg, tokens: int, tiles: int, raw: bool, gen, case: str,
         split=tiles > 1 and ops._plan(b, tiles, m, ops._sm_count(x.device)))
 
 
-def _print_vmm(w, cfg, out: dict) -> None:
+def _print_vmm(w, cfg, out: dict, what: str = "w_gate layer 0") -> None:
     _, s, r, m = w.g_pos.shape
     fs = 2.0 * r * (w.levels - 1)
     width = fs / (1 << cfg.adc_bits)
-    print(f"acim_vmm at w_gate layer 0 (R={r}, S={s}, M={m}, bc={w.bc}, FS={fs}, "
+    print(f"acim_vmm at {what} (K={w.rows_in}, R={r}, S={s}, M={m}, bc={w.bc}, FS={fs}, "
           f"ADC {cfg.adc_bits} bits, code width {width}); device ms (stream ms);")
     print("  library = one batched torch.matmul x @ (g_pos - g_neg) over (T, S), "
           "TF32 off, omitting the difference, noise, ADC and recombination")
@@ -848,7 +868,8 @@ def _serve_stream(sched, ex, reqs, vocab: int, leaves: int, what: str) -> dict:
     admission, prefill chunk and decode step), and the executor served
     ``decode_steps * n_slots + prefill_tokens`` tokens.  Times and
     launches per dispatch come from the scheduler's own spans: host-clock
-    ms, and the kernels launched inside each (its ``launches`` arg)."""
+    ms, and the kernels launched inside each (its ``launches`` arg); only
+    the spans that start in this run are read."""
     import torch
 
     from repro_torch import obs
@@ -859,7 +880,7 @@ def _serve_stream(sched, ex, reqs, vocab: int, leaves: int, what: str) -> dict:
     warm = dict(sched.trace_counts)
     tokens0 = ex.tokens_served
     torch.cuda.synchronize()
-    obs.trace.reset()
+    t_start = obs.tracer.now_us()
     vmm_ops.launches = vmm_ops.launches_single = 0
     fwht_ops.launches = wv_ops.launches = 0
     recs = sched.run(reqs)
@@ -868,7 +889,7 @@ def _serve_stream(sched, ex, reqs, vocab: int, leaves: int, what: str) -> dict:
                 "fwht": fwht_ops.launches, "wv_step": wv_ops.launches}
     spans = {}
     for e in obs.trace.events():
-        if e["ph"] == "X":
+        if e["ph"] == "X" and e["ts"] >= t_start:
             spans.setdefault(e["name"], []).append(e)
     ms = {n: [e["dur"] / 1e3 for e in spans.get(n, [])]
           for n in ("serve.decode", "serve.admit", "serve.prefill_chunk", "serve.maintenance")}
@@ -1996,6 +2017,250 @@ def phase_fig10(gen) -> dict:
     return dict(dloss=dloss, rms=rms, clean=clean, launches=launches, train_s=train_s,
                 kcases=kcases)
 
+def _example(name: str):
+    """`examples/<name>.py` as a module (the examples are scripts, not a
+    package), so a phase runs the code the script runs."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _printed(fn) -> list[str]:
+    """The lines `fn()` prints (it must return 0)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fn()
+    if rc != 0:
+        raise AssertionError(f"renderer exited {rc}: {buf.getvalue()[-2000:]}")
+    return buf.getvalue().splitlines()
+
+
+def _registry_deploy(serve_lm, params, what: str) -> dict:
+    """Deploy `params` through `torch_serve_lm.deploy_model` (key 1, as
+    the script's `run` makes it) with every
+    kernel count and the telemetry set to 0 just before, and check the
+    deploy's contracts: one host sync (counted, and seen by CUDA sync
+    debugging), 3 `fwht` and 1 `wv_step` launches per bucket-iteration,
+    and telemetry that agrees with the report: columns per tile summing
+    to the report's columns, the ``deploy.*`` counters and the ``deploy``
+    ledger row equal to its totals, the per-tile gave-up and write-pulse
+    maps within 1e-6 of them (float32 tile sums), and both deploy digests
+    counting every column."""
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.core import pipeline, rng
+    from repro_torch.kernels.fwht import ops as fwht_ops
+    from repro_torch.kernels.wv_step import ops as wv_ops
+
+    key = rng.PRNGKey(1, device="cuda")
+    obs.reset_all()
+    torch.cuda.synchronize()
+    fwht_ops.launches = wv_ops.launches = 0
+    pipeline.reset_counters()
+    t0 = time.perf_counter()
+    (model, rep), dbg_syncs, where = _sync_counted(
+        lambda: serve_lm.deploy_model(key, params, "cuda"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"fwht": fwht_ops.launches, "wv_step": wv_ops.launches}
+    syncs = pipeline.host_sync_count()
+    buckets = len(pipeline.bucket_sizes(rep.num_columns))
+    per_bucket_iter = buckets * model.wv_cfg.max_fine_iters
+    hr = obs.health_registry
+    n_tiles = len(hr.tiles("deploy.columns"))
+    counters = obs.registry.snapshot()
+    charged = obs.ledger.summary()["deploy"]
+    print(f"  {what}: {rep.num_columns} columns in {buckets} buckets, {len(model.arrays)} "
+          f"leaves; wall {wall:.2f} s; host syncs {syncs} (sync debugging saw {dbg_syncs} "
+          f"at {where}); launches fwht={launches['fwht']} wv_step={launches['wv_step']}; "
+          f"rms {rep.rms_cell_error_lsb:.6f} LSB, mean iterations {rep.mean_iterations:.4f}, "
+          f"gave-up cells {rep.total_gave_up_cells:.0f}")
+    print(f"    telemetry: {n_tiles} tiles folded into {len(hr.snapshot()['tiles'])} "
+          f"deploy maps; worst tiles by err2_sum {hr.worst('deploy.err2_sum', 5)}; "
+          f"by gave_up_cells {hr.worst('deploy.gave_up_cells', 3)}")
+    if launches["fwht"] != 3 * per_bucket_iter or launches["wv_step"] != per_bucket_iter:
+        raise AssertionError(f"{what}: fwht {launches['fwht']}x, wv_step {launches['wv_step']}x; "
+                             f"HARP needs 3 and 1 per bucket-iteration ({per_bucket_iter})")
+    if syncs != 1 or dbg_syncs != 1:
+        raise AssertionError(f"{what}: {syncs} counted host syncs, {dbg_syncs} seen by sync "
+                             f"debugging at {where} (expected 1 and 1)")
+    if sum(hr.tiles("deploy.columns").values()) != rep.num_columns:
+        raise AssertionError(f"{what}: the tile map holds "
+                             f"{sum(hr.tiles('deploy.columns').values())} columns")
+    for name, want in (("columns", rep.num_columns), ("gave_up_cells", rep.total_gave_up_cells),
+                       ("write_pulses", rep.total_write_pulses),
+                       ("verify_reads", rep.total_reads)):
+        if counters[f"deploy.{name}"] != float(want):
+            raise AssertionError(f"{what}: counter deploy.{name} {counters[f'deploy.{name}']} "
+                                 f"!= the report's {want}")
+    if charged["energy_pj"] != rep.total_energy_pj or charged["reads"] != rep.total_reads:
+        raise AssertionError(f"{what}: ledger row {charged} vs the report's energy "
+                             f"{rep.total_energy_pj} and reads {rep.total_reads}")
+    for name, want in (("gave_up_cells", rep.total_gave_up_cells),
+                       ("write_pulses", rep.total_write_pulses)):
+        got = sum(hr.tiles(f"deploy.{name}").values())
+        if not abs(got - want) <= 1e-6 * max(want, 1.0):
+            raise AssertionError(f"{what}: deploy.{name} tiles sum to {got}, report {want}")
+    for name in ("deploy.write_pulses_per_column", "deploy.iterations_per_column"):
+        if obs.digests.get(name).count != rep.num_columns:
+            raise AssertionError(f"{what}: digest {name} counts "
+                                 f"{obs.digests.get(name).count} columns")
+    return dict(model=model, report=rep, wall_s=wall, launches=launches, tiles=n_tiles)
+
+
+def phase_registry(gen) -> dict:
+    """Phase 13: registry models at full width, through the port's
+    entry points.
+
+    llama3.2-1b from `get_config` (d_model 2048, 32 / 8 heads of 64,
+    d_ff 8192, tied 128256-token head), cut to `REGISTRY_LAYERS` of 16
+    layers, with `torch_serve_lm.py --analog --continuous`'s defaults
+    (4 slots, 16 Poisson requests at load 0.3, DAC 6 / ADC 10 bits, read
+    noise 0.2 LSB): its params and HARP deploy as the script makes them
+    (`_registry_deploy`: one sync, the launches, the telemetry against
+    the report), its executor and scheduler from the script's functions,
+    the stream held as phase 9 holds its streams (`_serve_stream`: one
+    sync per decode step, 7 launches per dispatch, every request served)
+    and reported by the script.  Then `obs.fleet_status()` and an
+    `SLOPolicy` shaped like `benchmarks/fleet_health.py`'s (a p99-latency
+    ceiling and a give-up ceiling) on paths this run fills, each of
+    which must resolve; the health maps and digests are emitted, the
+    trace exported and rendered by the port's `obs.report` and
+    `obs.dashboard`.  Then smollm-360m (d_model 960: 7.5 tiles of 128
+    rows; kv_dim 320) at 1 layer, deployed the same way and served with
+    ideal converters against its digital forward (`_ideal_check`).
+    Last, the kernels on this phase's operands: `fwht` and `wv_step` on
+    llama's w_down first fine iteration, `acim_vmm_tiled` at decode
+    (B = 40) on llama's w_down (T = 64) and w_gate (M = 8192) and on
+    smollm's wq (K = 960, its last tile half padding) and wk (M = 320).
+    """
+    import json as _json
+
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.cim import CIMConfig, build_weight
+    from repro_torch.configs import get_config
+    from repro_torch.core import rng
+    from repro_torch.models import init_params
+    from repro_torch.obs import dashboard
+    from repro_torch.obs import report as obs_report
+    from repro_torch.serving import ServeEngine
+
+    serve_lm = _example("torch_serve_lm")
+    args = serve_lm.build_parser().parse_args(
+        ["--arch", "llama3.2-1b", "--analog", "--continuous",
+         "--requests", str(REGISTRY_REQUESTS)])
+    cfg = get_config(args.arch).replace(n_layers=REGISTRY_LAYERS)
+    print(f"registry: {cfg.name} at full width (d_model {cfg.d_model}, {cfg.n_heads} / "
+          f"{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size} tied, rope_theta {cfg.rope_theta}), {cfg.n_layers} of 16 layers")
+    params = init_params(0, cfg, device="cuda")     # as torch_serve_lm.run makes them
+    dep = _registry_deploy(serve_lm, params, cfg.name)
+    del params
+    ex = serve_lm.make_executor(dep["model"], args, "cuda")
+    engine = ServeEngine(cfg, executor=ex)
+    t0 = time.perf_counter()
+    sched, reqs = serve_lm.make_scheduler(engine, cfg, args, "cuda")
+    warm_s = time.perf_counter() - t0
+    leaves = 7 * cfg.n_layers
+    run = _serve_stream(sched, ex, reqs, cfg.vocab_size, leaves, cfg.name)
+    serve_lm.report_continuous(sched, run["recs"], ex)
+    _print_stream(f"{cfg.name} stream ({len(reqs)} requests, torch_serve_lm.py's defaults; "
+                  f"warmup {warm_s:.2f} s)", sched, run)
+
+    # The fleet view and an SLO policy on this run's own metrics.
+    status = obs.fleet_status()
+    policy = obs.SLOPolicy(rules=(
+        obs.SLORule("p99_latency", "digests.serve.latency_steps.p99", float(sched.max_len)),
+        obs.SLORule("give_up_cells", "counters.deploy.gave_up_cells",
+                    1e-4 * dep["report"].num_cells),
+    ))
+    verdicts = policy.evaluate(status, phase="registry")
+    for v in verdicts:
+        print(f"  SLO {v['name']}: {v['metric']} = {v['value']} against ceiling "
+              f"{v['ceiling']:.6g}: {'BREACHED' if v['breached'] else 'met'}")
+    missing = [v["metric"] for v in verdicts if v["value"] is None]
+    if missing:
+        raise AssertionError(f"SLO metrics that this run did not fill: {missing}")
+    obs.health_registry.emit()
+    obs.digests.emit()
+    out_dir = Path(__file__).resolve().parent / "build" / "chip_smoke_obs"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    trace_path = Path(obs.trace.export(out_dir / "TRACE_registry.json"))
+    fleet_path = out_dir / "fleet_status.json"
+    fleet_path.write_text(_json.dumps(status))
+    rep_lines = _printed(lambda: obs_report.main([str(trace_path)]))
+    dash_lines = _printed(lambda: dashboard.main([str(trace_path), "--fleet", str(fleet_path),
+                                                  "--format", "text"]))
+    print(f"  obs.report of {trace_path.name} ({len(rep_lines)} lines; head):")
+    for line in rep_lines[:30]:
+        print(f"    {line}")
+    print(f"  obs.dashboard --format text ({len(dash_lines)} lines; head):")
+    for line in dash_lines[:40]:
+        print(f"    {line}")
+    for phase in ("deploy", "deploy.program_columns", "serve.decode", "serve.analog"):
+        if not any(line.split()[:1] == [phase] for line in rep_lines):
+            raise AssertionError(f"the report of this run's trace has no {phase} row")
+
+    # The kernels on llama's operands.
+    cim = CIMConfig(dac_bits=args.dac_bits, adc_bits=args.adc_bits,
+                    sigma_read_lsb=args.read_noise)
+    model = dep["model"]
+    st = model.arrays["['layers']['w_down']"]
+    c = min(C_DEPLOY, int(st.targets.shape[0]))
+    wv_args, p = _first_fine_iteration(rng.PRNGKey(1, device="cuda"), st, model.wv_cfg, c)
+    kcases = {
+        "wv_step": [dict(_wv_case(wv_args, p),
+                         case=f"{cfg.name} w_down, first fine iteration, C={c}")],
+        "fwht": [dict(phase_fwht(model.wv_cfg.n_cells, gen, x=wv_args[2]),
+                      case=f"{cfg.name} w_down, first verify's conductances, C={c}")],
+    }
+    vmm = {}
+    for leaf in ("w_down", "w_gate"):
+        w = build_weight(model.arrays[f"['layers']['{leaf}']"], cim,
+                         rng.PRNGKey(0, device="cuda")).layer(0)
+        case = f"{cfg.name} {leaf} decode"
+        vmm[case] = _vmm_case(w, cim, args.n_slots, w.n_tiles, False, gen, case)
+        _print_vmm(w, cim, {case: vmm[case]}, f"{cfg.name} {leaf} layer 0")
+    launches = dict(dep["launches"], acim_vmm_tiled=run["launches"]["acim_vmm_tiled"],
+                    acim_vmm=run["launches"]["acim_vmm"])
+    wall_s = dep["wall_s"]
+    del ex, engine, sched, model, dep, st, wv_args
+    torch.cuda.empty_cache()
+
+    # smollm-360m: widths that are not powers of two.
+    scfg = get_config("smollm-360m").replace(n_layers=REGISTRY_LAYERS)
+    print(f"registry: {scfg.name} at full width (d_model {scfg.d_model}, q_dim {scfg.q_dim}, "
+          f"kv_dim {scfg.kv_dim}, d_ff {scfg.d_ff}, vocab {scfg.vocab_size} tied), "
+          f"{scfg.n_layers} of 32 layers")
+    sparams = init_params(0, scfg, device="cuda")
+    sdep = _registry_deploy(serve_lm, sparams, scfg.name)
+    tokens = torch.randint(0, scfg.vocab_size, (args.n_slots, args.prompt_len), device="cuda",
+                           generator=gen, dtype=torch.int32)
+    _ideal_check(sdep["model"], scfg, tokens, scfg.name)
+    for leaf in ("wq", "wk"):
+        w = build_weight(sdep["model"].arrays[f"['layers']['{leaf}']"], cim,
+                         rng.PRNGKey(0, device="cuda")).layer(0)
+        case = f"{scfg.name} {leaf} decode"
+        vmm[case] = _vmm_case(w, cim, args.n_slots, w.n_tiles, False, gen, case)
+        _print_vmm(w, cim, {case: vmm[case]}, f"{scfg.name} {leaf} layer 0")
+    for name, rr in kcases.items():
+        r = rr[0]
+        print(f"  {name} on {r['case']}: ms={r['ms']:.4f} ({r['stream_ms']:.4f}) plain_ms="
+              f"{r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
+              f"max_abs_err={r['max_abs_err']:.3g}")
+    return dict(launches=launches, kcases=kcases, vmm=vmm, wall_s=wall_s,
+                smollm_wall_s=sdep["wall_s"], verdicts=verdicts)
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2083,6 +2348,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     stamp("fig10 phase")
     fig10 = phase_fig10(gen)
+    torch.cuda.empty_cache()
+    stamp("registry phase")
+    reg = phase_registry(gen)
     stamp("done")
 
     main_fwht, main_wv = k[("fwht", 32)], k[("wv_step", 32, True)]
@@ -2124,6 +2392,12 @@ def main() -> int:
             {k: r[k] for k in ("case", "ms", "plain_ms", "bound_ms", "bound_by",
                                "library_ms", "max_abs_err")}
             for r in fig10["kcases"][entry["name"]]]
+        # Phase 13: llama3.2-1b's deploy, and the kernel on its operands.
+        entry["launches_registry"] = reg["launches"][entry["name"]]
+        entry["registry_case"] = [
+            {k: r[k] for k in ("case", "ms", "plain_ms", "bound_ms", "bound_by",
+                               "library_ms", "max_abs_err")}
+            for r in reg["kcases"][entry["name"]]]
     for name, case, src_line in (("acim_vmm_tiled", "decode", 166),
                                  ("acim_vmm", "one tile", 230)):
         r = vmm[case]
@@ -2133,6 +2407,7 @@ def main() -> int:
             cases.update(cont["vmm"])
             cases["remapped decode (phase 10)"] = faults["vmm"]
             cases.update({f"{c} (phase 11)": o for c, o in loop["vmm"].items()})
+            cases.update({f"{c} (phase 13)": o for c, o in reg["vmm"].items()})
         line["kernels"].append(dict(
             name=name, route="cuda", source="src/repro_torch/kernels/csrc/acim_vmm.cu",
             replaces=f"src/repro/kernels/acim_vmm/acim_vmm.py:{src_line}",
@@ -2144,6 +2419,7 @@ def main() -> int:
             launches_faults=faults["launches"][name],
             launches_train=loop["launches"][name],
             launches_fig10=fig10["launches"][name],
+            launches_registry=reg["launches"][name],
             # The same kernel's other rows of phases 7 and 9 (route "raw" = f32).
             other_cases={c: dict(ms=o["ms"], bound_ms=o["bound_ms"], bound_by=o["bound_by"],
                                  plain_ms=o["plain_ms"], library_ms=o["library_ms"],

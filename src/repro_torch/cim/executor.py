@@ -29,7 +29,7 @@ import torch
 from repro_torch.core import rng
 from repro_torch.core.cost import inference_token_cost
 from repro_torch.core.programmer import DeployedModel, fill_names
-from repro_torch.obs import metrics
+from repro_torch import obs
 
 from .mvm import CIMConfig, planes_per_token
 from .tile import CIMWeight, broadcast_key, build_weight
@@ -146,15 +146,26 @@ class CIMExecutor:
         """One engine access: fresh noise sub-streams + read accounting.
 
         Every token reads every analog array's physical columns `planes`
-        times (each DAC plane is one read phase of every macro).
+        times (each DAC plane is one read phase of every macro).  Each
+        tick also sets the fleet health gauges (tokens served, cumulative
+        read-disturb reads) and charges the modeled per-token cost to the
+        ``serve.analog`` ledger phase: host floats only (the cached
+        `token_cost`), never a sync.
         """
         self.access += 1
         self.tokens_served += n_tokens
         reads = float(n_tokens * self.planes)
         for name in self._reads:
             self._reads[name] += reads
-        metrics.inc("cim.tokens", n_tokens)
-        metrics.inc("cim.accesses")
+        obs.registry.inc("cim.tokens", n_tokens)
+        obs.registry.inc("cim.accesses")
+        obs.health_registry.set_gauge("cim.tokens_served", float(self.tokens_served))
+        obs.health_registry.set_gauge(
+            "cim.read_disturb_reads",
+            float(self.tokens_served * self.planes * len(self._analog)))
+        lat_ns, en_pj = self.token_cost()
+        obs.charge("serve.analog", tokens=n_tokens, energy_pj=en_pj * n_tokens,
+                   latency_ns=lat_ns * n_tokens, reads=reads * len(self._analog))
         return self.params()
 
     # ------------------------------------------------- traffic / costs

@@ -24,6 +24,13 @@ fault map is sampled per uid, like d2d, and every dispatch programs
 under it; explicit `uids` let the spare-column pass program
 non-contiguous physical columns (`core.remap`).
 
+Telemetry (the reference's): the bucket loop runs in a
+``deploy.program_columns`` span, and each dispatch's real column count
+goes to the ``pipeline.bucket_columns`` digest (host ints).  The
+reference also records a ``pipeline.compile`` instant when `jax.jit`
+traces a new bucket shape; the port traces nothing, so it records none
+(`compile_count()` still counts the distinct dispatch shapes).
+
 Nothing here synchronizes with the device; `host_fetch` is the one
 counted transfer point (`host_sync_count()`), and a batched deploy calls
 it exactly once.  Nothing here updates a tensor in place, so slices of
@@ -38,6 +45,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.obs import metrics as obs_metrics
 
 from . import device as dev_mod
@@ -252,30 +260,36 @@ def program_packed_columns(
              if with_fault else None)
 
     fn = get_program_fn(cfg, cost, with_fault=with_fault)
+    sizes_plan = bucket_sizes(c_total, min_bucket, max_bucket)
     g_parts, stat_parts = [], []
     off = 0
-    for size in bucket_sizes(c_total, min_bucket, max_bucket):
-        take = min(size, c_total - off)
-        tb = targets[off: off + take]
-        db = d2d[off: off + take]
-        ub = uids[off: off + take]
-        fb = fault.map(lambda x: x[off: off + take]) if with_fault else None
-        pad = size - take
-        if pad:
-            # Filler columns: zero targets, fresh uids past the real range
-            # (their streams never alias a real column's), unit d2d, inert
-            # fault rows.
-            tb = F.pad(tb, (0, 0, 0, pad))
-            db = F.pad(db, (0, 0, 0, pad), value=1.0)
-            ub = torch.cat([ub, pad_uid_base + torch.arange(
-                pad, dtype=torch.int64, device=device)])
-            if with_fault:
-                fb = dev_mod.FaultMap(*(torch.cat([x, f]) for x, f in zip(
-                    fb, dev_mod.empty_fault_map((pad, n), device=device))))
-        g_b, st_b = fn(key, tb, db, ub, *((fb,) if with_fault else ()))
-        g_parts.append(g_b[:take])
-        stat_parts.append(st_b.map(lambda x: x[:take]))
-        off += take
+    with obs.span("deploy.program_columns", cat="pipeline", columns=c_total,
+                  buckets=len(sizes_plan), blocks=len(blocks)):
+        for size in sizes_plan:
+            take = min(size, c_total - off)
+            # How well the bucket menu fits real models: host ints only.
+            obs.digests.observe("pipeline.bucket_columns", float(take),
+                                lo=0.0, hi=float(DEFAULT_MAX_BUCKET), n_buckets=64)
+            tb = targets[off: off + take]
+            db = d2d[off: off + take]
+            ub = uids[off: off + take]
+            fb = fault.map(lambda x: x[off: off + take]) if with_fault else None
+            pad = size - take
+            if pad:
+                # Filler columns: zero targets, fresh uids past the real
+                # range (their streams never alias a real column's), unit
+                # d2d, inert fault rows.
+                tb = F.pad(tb, (0, 0, 0, pad))
+                db = F.pad(db, (0, 0, 0, pad), value=1.0)
+                ub = torch.cat([ub, pad_uid_base + torch.arange(
+                    pad, dtype=torch.int64, device=device)])
+                if with_fault:
+                    fb = dev_mod.FaultMap(*(torch.cat([x, f]) for x, f in zip(
+                        fb, dev_mod.empty_fault_map((pad, n), device=device))))
+            g_b, st_b = fn(key, tb, db, ub, *((fb,) if with_fault else ()))
+            g_parts.append(g_b[:take])
+            stat_parts.append(st_b.map(lambda x: x[:take]))
+            off += take
 
     g_all = torch.cat(g_parts) if len(g_parts) > 1 else g_parts[0]
     stats_all = (

@@ -21,6 +21,15 @@ provisions spare columns per leaf and, after the primary pass, repairs
 the worst columns onto them in a second pass (`core.remap`), with
 optional fault-aware placement.  The deploy still makes one host sync.
 
+Telemetry (the reference's, DESIGN.md Sec. 14 and 16): a batched deploy
+reduces per-tile health (give-up, retry and write pulses, verify reads,
+squared cell error, remapped columns) and two digests (write pulses and
+iterations per column) on the device, and they ride the report's one
+host fetch; the fetched values are folded into `obs.health_registry`
+(``deploy.*`` tile maps) and `obs.digests`, the report's totals into the
+``deploy.*`` counters, and the modeled energy into the ``deploy`` (and
+``deploy.give_up``) ledger phases, all inside a ``deploy`` span.
+
 Deployment policy (the reference's, kept as is):
 * leaves with ndim >= 2 go to RRAM (flattened to (K, M) on the last
   axis) — this includes the stacked per-layer norm scales (L, d);
@@ -39,8 +48,9 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from repro_torch import pytree
+from repro_torch import obs, pytree
 from repro_torch.quant import (
     QuantConfig,
     dequantize_weight,
@@ -94,15 +104,23 @@ class DeployReport:
     total_retry_pulses: float = 0.0   # pulses burned on gave-up cells
     remapped_columns: int = 0         # primaries repaired onto spares
     leaves: dict[str, dict[str, float]] = dataclasses.field(default_factory=dict)
+    # The fetched `extra` tree of `collect` (per-tile health reductions,
+    # deploy digests).  Not a dataclass field, as in the reference: a
+    # transport slot for the fold in `deploy_arrays`, not part of the
+    # report's scalars.
+    extra = None
 
     @classmethod
     def collect(cls, leaf_stats: "dict[str, WVStats]", n_cells: int,
-                remapped: "dict[str, torch.Tensor] | None" = None) -> "DeployReport":
+                remapped: "dict[str, torch.Tensor] | None" = None,
+                extra: Any | None = None) -> "DeployReport":
         """Device-side report reduction with exactly ONE host sync.
 
         All reductions (per-leaf and aggregate) run on the device over the
         `WVStats` tensors; one `pipeline.host_fetch` moves the scalars,
-        with the per-leaf remapped-column counts (`remapped`) beside them.
+        with the per-leaf remapped-column counts (`remapped`) and the
+        caller's `extra` tree (per-tile health, deploy digests) beside
+        them.  The fetched `extra` lands in `report.extra`.
         """
         if not leaf_stats:
             return cls()
@@ -131,7 +149,8 @@ class DeployReport:
             )
             for name, s in leaf_stats.items()
         }
-        agg_h, per_h, rem_h = pipeline.host_fetch((agg, per, remapped or {}))
+        agg_h, per_h, rem_h, extra_h = pipeline.host_fetch(
+            (agg, per, remapped or {}, extra))
         report = cls(
             num_columns=sum(int(s.iterations.shape[0]) for s in stats),
             num_cells=sum(int(s.iterations.shape[0]) * n_cells for s in stats),
@@ -147,6 +166,7 @@ class DeployReport:
         }
         for name, v in rem_h.items():
             report.leaves[name]["remapped_columns"] = float(v)
+        report.extra = extra_h
         return report
 
     def merge(self, name: str, stats: WVStats, n_cells: int) -> None:
@@ -303,6 +323,48 @@ class _LeafPlan:
         )
 
 
+# Deploy-wide digest configurations (static, so every deploy folds into
+# the same bucket geometry): per-column verify write pulses and WV
+# iterations.  Out-of-range columns clamp into the edge buckets.
+_PULSE_DIGEST = ("deploy.write_pulses_per_column", 0.0, 4096.0, 64)
+_ITER_DIGEST = ("deploy.iterations_per_column", 0.0, 128.0, 64)
+
+
+def _deploy_health_tree(stats_map: "dict[str, WVStats]",
+                        uids_map: "dict[str, np.ndarray]", cpt: int,
+                        extra_columns: "dict[str, dict[str, torch.Tensor]] | None" = None
+                        ) -> dict[str, Any]:
+    """Device tree of per-tile health reductions (`cpt` columns per
+    tile) and the deploy digests.
+
+    Everything here is a device reduction (or host uid bookkeeping) that
+    rides the deploy's one `host_fetch` through `DeployReport.collect(
+    extra=...)`; building it never synchronizes.
+    """
+    tile_ids, tiles = obs.health.tile_deploy_stats(
+        stats_map, uids_map, cpt, extra_columns=extra_columns)
+    stats = list(stats_map.values())
+    digs = {}
+    for (name, lo, hi, nb), field in ((_PULSE_DIGEST, "write_pulses"),
+                                      (_ITER_DIGEST, "iterations")):
+        vals = torch.cat([getattr(s, field) for s in stats])
+        digs[name] = obs.StreamingDigest.zeros(lo, hi, nb, device=vals.device).add(
+            vals).as_tree()
+    return {"tile_ids": tile_ids, "tiles": tiles, "digests": digs}
+
+
+def _fold_deploy_health(extra_h: dict[str, Any] | None) -> None:
+    """Fold the FETCHED health tree into the host registries."""
+    if not extra_h:
+        return
+    tile_ids = extra_h["tile_ids"]
+    for metric, vals in extra_h["tiles"].items():
+        obs.health_registry.fold_tiles(f"deploy.{metric}", tile_ids, vals)
+    bounds = {name: (lo, hi) for name, lo, hi, _ in (_PULSE_DIGEST, _ITER_DIGEST)}
+    for name, tree in extra_h["digests"].items():
+        obs.digests.fold(name, obs.StreamingDigest.from_tree(*bounds[name], tree))
+
+
 def _plan_leaf(name, w, wv_cfg, q_cfg, uid_base) -> _LeafPlan:
     w2 = w.reshape((-1, w.shape[-1]))
     q, scale = quantize_weight(w2, q_cfg)
@@ -413,36 +475,88 @@ def deploy_arrays(
 
     arrays: dict[str, ArrayState] = {}
     fc = fault_cfg if use_fault else None
-    if batched and not use_remap:
-        g_blocks, stats_blocks, d2d_blocks, fault_blocks = (
-            pipeline.program_packed_columns(
-                key, [p.cols for p in plans], wv_cfg, cost,
-                min_bucket=min_bucket, max_bucket=max_bucket, fault_cfg=fc,
-            ))
-        for plan, g, d2d, fb in zip(plans, g_blocks, d2d_blocks, fault_blocks):
-            arrays[plan.name] = plan.state(g, d2d, fault=fb)
-        report = DeployReport.collect(
-            {p.name: s for p, s in zip(plans, stats_blocks)}, wv_cfg.n_cells
-        )
-    elif batched:
-        arrays, report = _deploy_with_spares(
-            key, plans, wv_cfg, cost, fc, remap_cfg, sensitivity,
-            min_bucket, max_bucket)
-    else:
-        report = DeployReport()
-        for plan in plans:
-            state, stats = _program_plan(key, plan, wv_cfg, cost)
-            report.merge(plan.name, stats, wv_cfg.n_cells)
-            arrays[plan.name] = state
+    cpt = (fault_cfg or FaultConfig()).columns_per_tile
+    with obs.span("deploy", cat="deploy", method=wv_cfg.method.value,
+                  leaves=len(plans), batched=batched) as sp:
+        if batched and not use_remap:
+            g_blocks, stats_blocks, d2d_blocks, fault_blocks = (
+                pipeline.program_packed_columns(
+                    key, [p.cols for p in plans], wv_cfg, cost,
+                    min_bucket=min_bucket, max_bucket=max_bucket, fault_cfg=fc,
+                ))
+            for plan, g, d2d, fb in zip(plans, g_blocks, d2d_blocks, fault_blocks):
+                arrays[plan.name] = plan.state(g, d2d, fault=fb)
+            stats_map = {p.name: s for p, s in zip(plans, stats_blocks)}
+            uids_map = {p.name: arrays[p.name].uids for p in plans}
+            report = DeployReport.collect(
+                stats_map, wv_cfg.n_cells,
+                extra=_deploy_health_tree(stats_map, uids_map, cpt))
+        elif batched:
+            arrays, report = _deploy_with_spares(
+                key, plans, wv_cfg, cost, fc, remap_cfg, sensitivity,
+                min_bucket, max_bucket, cpt)
+        else:
+            report = DeployReport()
+            for plan in plans:
+                state, stats = _program_plan(key, plan, wv_cfg, cost)
+                report.merge(plan.name, stats, wv_cfg.n_cells)
+                arrays[plan.name] = state
+        sp["columns"] = report.num_columns
+        sp["rms_cell_error_lsb"] = report.rms_cell_error_lsb
+    # The per-tile reductions and digests were fetched BY the report's one
+    # host sync; folding them, the counters and the charges is host work.
+    _fold_deploy_health(report.extra)
+    _account(report, wv_cfg, cost)
     model = DeployedModel(names=names_tree(params), digital=digital,
                           arrays=arrays, wv_cfg=wv_cfg, cost=cost)
     return model, report
 
 
+def _account(report: DeployReport, wv_cfg: WVConfig, cost: CircuitCost) -> None:
+    """The deploy's ``deploy.*`` counters and ledger charges, from the
+    report's host floats."""
+    obs.registry.fold(
+        {
+            "columns": report.num_columns,
+            "verify_reads": report.total_reads,
+            "write_pulses": report.total_write_pulses,
+            # Contract-bearing give-up/remap counters (DESIGN.md Sec. 15).
+            "gave_up_cells": report.total_gave_up_cells,
+            "retry_pulses": report.total_retry_pulses,
+            "remapped_columns": report.remapped_columns,
+        },
+        prefix="deploy.",
+    )
+    obs.charge(
+        "deploy",
+        energy_pj=report.total_energy_pj,
+        latency_ns=report.critical_latency_ns,
+        reads=report.total_reads,
+        method=wv_cfg.method.value,
+        columns=report.num_columns,
+    )
+    if report.total_gave_up_cells or report.remapped_columns:
+        # The bounded-retry waste: energy of the pulses burned on cells
+        # that were given up on, at mid-scale conductance (the per-pulse
+        # energy model of cost.write_phase_cost, g = G_max / 2).
+        e_pulse_pj = (
+            cost.v_set ** 2
+            * (wv_cfg.device.g_max_lsb / 2.0 * cost.g_lsb_us)
+            * cost.t_write_pulse_ns * 1e-3
+        )
+        obs.charge(
+            "deploy.give_up",
+            energy_pj=report.total_retry_pulses * e_pulse_pj,
+            gave_up_cells=report.total_gave_up_cells,
+            retry_pulses=report.total_retry_pulses,
+            remapped_columns=report.remapped_columns,
+        )
+
+
 def _deploy_with_spares(key, plans: list[_LeafPlan], wv_cfg: WVConfig,
                         cost: CircuitCost, fault_cfg: FaultConfig | None,
                         remap_cfg: remap_mod.RemapConfig, sensitivity,
-                        min_bucket: int, max_bucket: int
+                        min_bucket: int, max_bucket: int, cpt: int
                         ) -> tuple[dict[str, ArrayState], DeployReport]:
     """The two-pass spare-column deploy (DESIGN.md Sec. 15).
 
@@ -484,6 +598,7 @@ def _deploy_with_spares(key, plans: list[_LeafPlan], wv_cfg: WVConfig,
     arrays: dict[str, ArrayState] = {}
     combined: dict[str, WVStats] = {}
     remapped: dict[str, torch.Tensor] = {}
+    remap_flags: dict[str, torch.Tensor] = {}
     for i, plan in enumerate(plans):
         st, sst = stats_blocks[i], sstats_blocks[i]
         table = remap_mod.build_table(st.gave_up, cands[i], sst.gave_up,
@@ -499,8 +614,16 @@ def _deploy_with_spares(key, plans: list[_LeafPlan], wv_cfg: WVConfig,
             uids=uid_arrays[i],
         )
         combined[plan.name] = WVStats(*(torch.cat([a, b]) for a, b in zip(st, sst)))
-        remapped[plan.name] = torch.sum((~table.active[: c_counts[i]]).to(torch.float32))
-    report = DeployReport.collect(combined, wv_cfg.n_cells, remapped=remapped)
+        not_active = (~table.active[: c_counts[i]]).to(torch.float32)
+        remapped[plan.name] = torch.sum(not_active)
+        # Per-column remap flags in physical order (primaries, then
+        # spares) for the per-tile health map.
+        remap_flags[plan.name] = F.pad(not_active, (0, s_counts[i]))
+    uids_map = {p.name: arrays[p.name].uids for p in plans}
+    report = DeployReport.collect(
+        combined, wv_cfg.n_cells, remapped=remapped,
+        extra=_deploy_health_tree(combined, uids_map, cpt,
+                                  extra_columns={"remapped_columns": remap_flags}))
     return arrays, report
 
 

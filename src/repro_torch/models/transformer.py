@@ -56,7 +56,8 @@ def init_params(seed: int, cfg: ModelConfig, device="cuda") -> dict[str, Any]:
     if (cfg.block != "attn" or cfg.is_moe or cfg.cross_attn_every
             or cfg.frontend != "none" or not cfg.tie_embeddings):
         raise NotImplementedError(
-            f"init_params covers the dense attention block only, got {cfg.name}")
+            f"init_params covers the dense attention block only, got {cfg.name} "
+            "(the other families are ROADMAP.md A4)")
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
     d, dt, L = cfg.d_model, cfg.dtype, cfg.n_layers
@@ -89,14 +90,17 @@ def _check_dense(cfg: ModelConfig) -> None:
     if cfg.block != "attn" or cfg.is_moe:
         raise NotImplementedError(
             f"the port's forward covers the dense attention stack, got "
-            f"block={cfg.block!r} moe={cfg.is_moe} ({cfg.name})")
+            f"block={cfg.block!r} moe={cfg.is_moe} ({cfg.name}; ROADMAP.md A4)")
     if cfg.cross_attn_every or cfg.cross_kv_len or cfg.cross_d_cond:
-        raise NotImplementedError(f"cross-attention is not ported ({cfg.name})")
+        raise NotImplementedError(
+            f"cross-attention is not ported ({cfg.name}; ROADMAP.md A4)")
     if cfg.n_codebooks > 1 or cfg.frontend != "none":
         raise NotImplementedError(
-            f"multi-codebook heads and stub frontends are not ported ({cfg.name})")
+            f"multi-codebook heads and stub frontends are not ported "
+            f"({cfg.name}; ROADMAP.md A4)")
     if cfg.pos_embedding == "sinusoidal":
-        raise NotImplementedError(f"sinusoidal positions are not ported ({cfg.name})")
+        raise NotImplementedError(
+            f"sinusoidal positions are not ported ({cfg.name}; ROADMAP.md A4)")
 
 
 def slice_layer(tree: Any, idx: int) -> Any:
@@ -164,7 +168,8 @@ def forward(params, batch: dict, cfg: ModelConfig, *,
     """Full-sequence forward.  batch: tokens (B, S).  Returns (logits,
     aux_loss, caches | None); caches k/v are (L, B, S, KV, hd)."""
     if batch.get("cond") is not None:
-        raise NotImplementedError("cross-attention conditioning is not ported")
+        raise NotImplementedError(
+            "cross-attention conditioning is not ported (ROADMAP.md A4)")
     x = embed_inputs(params, batch, cfg)
     s = x.shape[1]
     positions = pos_offset + torch.arange(s, device=x.device)[None, :]
@@ -191,7 +196,8 @@ def loss_fn(params, batch: dict, cfg: ModelConfig, mesh=None):
     if mesh is not None:
         raise NotImplementedError("mesh= is not ported (ROADMAP.md A5)")
     if cfg.n_codebooks > 1:
-        raise NotImplementedError(f"multi-codebook heads are not ported ({cfg.name})")
+        raise NotImplementedError(
+            f"multi-codebook heads are not ported ({cfg.name}; ROADMAP.md A4)")
     logits, aux, _ = forward(params, batch, cfg)
     ce = cross_entropy_loss(logits, batch["targets"], batch["mask"])
     loss = ce + cfg.router_aux_coef * aux

@@ -7,7 +7,14 @@ ledger and per-tile health maps.
   accumulated on the device or the host) and the `digests` registry;
 * `obs.trace`: host-side Chrome/Perfetto trace-event spans;
 * `obs.ledger`: per-phase modeled energy/latency (`obs.charge`);
-* `obs.health`: per-tile health maps and gauges.
+* `obs.health`: per-tile health maps and gauges, reduced on the device
+  on syncs the paths already make, and declarative `SLORule` /
+  `SLOPolicy` ceilings evaluated on the host over `fleet_status()`;
+* `obs.report`: ``python -m repro_torch.obs.report TRACE.json`` renders
+  the per-phase run summary (+ digest percentiles, SLO breaches);
+* `obs.dashboard`: ``python -m repro_torch.obs.dashboard`` joins trace
+  files, ledger charges and fleet-status snapshots into an HTML or text
+  report.
 
 The rule: spans and charges are host-side only, and device values reach
 the host only on syncs the hot path already makes.  `reset_all()`
@@ -18,6 +25,7 @@ from __future__ import annotations
 
 from . import digest, health, ledger, metrics, trace
 from .digest import StreamingDigest, digests, rank_quantile
+from .health import SLOPolicy, SLORule, fleet_status
 from .health import health as health_registry
 from .ledger import charge
 from .metrics import registry
@@ -31,8 +39,11 @@ __all__ = [
     "trace",
     "charge",
     "StreamingDigest",
+    "SLOPolicy",
+    "SLORule",
     "digests",
     "rank_quantile",
+    "fleet_status",
     "health_registry",
     "registry",
     "instant",

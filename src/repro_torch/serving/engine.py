@@ -15,10 +15,12 @@ access, and the executor accounts read traffic and token costs.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core import rng
 from repro_torch.models import ModelConfig, decode_step, prefill, prefill_chunk
 
@@ -98,26 +100,39 @@ class ServeEngine:
 
         The cache holds the prompt (the reference's fixed-batch engine
         prefills with ``max_len = S``).  The decode key is split every
-        step as in the reference, but only when sampling reads it.
+        step as in the reference, but only when sampling reads it.  The
+        call runs in a ``serve.generate`` span, and its host wall time
+        per generated token goes to the ``serve.generate_us_per_token``
+        digest.
         """
         b, s = tokens.shape
         if key is None:
             key = rng.PRNGKey(0, device=tokens.device)
-        last, cache = self._prefill(self.access_params(b * s), {"tokens": tokens})
-        cur = torch.argmax(last, dim=-1).to(torch.int32)[:, None]
-        outs = [cur]
-        done = torch.zeros((b,), dtype=torch.bool, device=tokens.device)
-        sub = None
-        for _ in range(max_new - 1):
-            if self._sample:
-                key, sub = rng.split(key)
-            tok, _, cache = self._decode(
-                self.access_params(b), cache, {"tokens": cur}, sub)
-            cur = tok[:, None]
-            if eos_id is not None:
-                done = done | (tok == eos_id)
-                if bool(torch.all(done)):
-                    outs.append(cur)
-                    break
-            outs.append(cur)
-        return torch.cat(outs, dim=1)
+        t0 = time.perf_counter()
+        with obs.span("serve.generate", cat="serve", batch=b, prompt_len=s,
+                      max_new=max_new) as sp:
+            last, cache = self._prefill(self.access_params(b * s), {"tokens": tokens})
+            cur = torch.argmax(last, dim=-1).to(torch.int32)[:, None]
+            outs = [cur]
+            done = torch.zeros((b,), dtype=torch.bool, device=tokens.device)
+            sub = None
+            for _ in range(max_new - 1):
+                if self._sample:
+                    key, sub = rng.split(key)
+                tok, _, cache = self._decode(
+                    self.access_params(b), cache, {"tokens": cur}, sub)
+                cur = tok[:, None]
+                if eos_id is not None:
+                    done = done | (tok == eos_id)
+                    if bool(torch.all(done)):
+                        outs.append(cur)
+                        break
+                outs.append(cur)
+            out = torch.cat(outs, dim=1)
+            sp["generated"] = int(out.shape[0] * out.shape[1])
+        # Host wall clock per generated token (the reference's digest).
+        obs.digests.observe(
+            "serve.generate_us_per_token",
+            (time.perf_counter() - t0) * 1e6 / max(int(out.shape[0] * out.shape[1]), 1),
+            lo=0.0, hi=1e6, n_buckets=128)
+        return out

@@ -5,10 +5,11 @@ Every JAX call runs inside a scoped ``jax.threefry_partitionable(False)``
 block; weights and deployments are carried across as numpy.
 
 Tolerances:
-* digital logits (`forward`, `prefill`, `decode_step`) and caches on
-  qwen3-0.6b's smoke config in float32: rtol 1e-4, atol 1e-5 (float32
-  sums taken in another order; XLA's rsqrt, exp, sin and cos differ from
-  PyTorch's by ulps);
+* digital logits (`forward`, `prefill`, `decode_step`) and caches on the
+  four dense smoke configs of the registry (qwen3-0.6b, llama3.2-1b,
+  smollm-360m, tinyllama-1.1b) in float32, params carried: rtol 1e-4,
+  atol 1e-5 (float32 sums taken in another order; XLA's rsqrt, exp, sin
+  and cos differ from PyTorch's by ulps);
 * `categorical`: token for token (the same Gumbel draws, argmax);
   `uniform` over [minval, maxval): bitwise for a unit span, otherwise
   within one rounding of ``f * span`` (the reference contracts the
@@ -20,7 +21,9 @@ Tolerances:
   up to 3 ulp off), so a few ADC codes in 10^5 move by one code or by
   one slice-1 code (8 codes); with the tiny model's 32-row tiles one
   such flip in a high DAC plane moves a logit by up to ~0.02 (measured
-  0.019 over 4 seeds x 7 steps; 1e-4 where no code flipped);
+  0.019 over 4 seeds x 7 steps; 1e-4 where no code flipped); the same
+  on smollm-360m's smoke config deployed by the reference and tiled in
+  32-row macros, so its 60-row inputs end in a partial tile;
 * greedy tokens from `generate`: equal at every step up to the first
   where the reference's top-2 margin is within the logit tolerance (a
   step after a legitimately different token sees another prompt).
@@ -34,6 +37,7 @@ import torch
 
 from repro.cim import CIMConfig as JCIMConfig
 from repro.cim import CIMExecutor as JCIMExecutor
+from repro import configs as jconfigs
 from repro.configs.qwen3_0_6b import SMOKE_CONFIG as J_SMOKE
 from repro.core import WVConfig as JWVConfig, WVMethod as JWVMethod
 from repro.core.programmer import deploy_arrays as j_deploy_arrays
@@ -44,6 +48,7 @@ from repro.models.decoding import prefill as j_prefill
 from repro.models.decoding import write_cache_slot as j_write_cache_slot
 from repro.models.transformer import forward as j_forward
 from repro.serving import ServeEngine as JServeEngine
+from repro_torch import configs
 from repro_torch.cim import CIMConfig, CIMExecutor
 from repro_torch.configs.qwen3_0_6b import SMOKE_CONFIG
 from repro_torch.convert import key_from_numpy, params_from_numpy
@@ -71,12 +76,45 @@ def _close(got: torch.Tensor, want, rtol=RTOL, atol=ATOL):
                                rtol=rtol, atol=atol)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two torch threads for the module, restored after it (the suite
+    runs files side by side in worker processes)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture(scope="module")
-def smoke_params():
-    with _legacy():
-        p = j_init_params(jax.random.PRNGKey(0), J_SMOKE)
-    np_params = jax.tree.map(np.asarray, p)
-    return np_params, params_from_numpy(np_params, device="cpu")
+def dense_params():
+    """arch -> (JAX smoke config, port smoke config, numpy params, port
+    params): the reference's params, carried, made once per arch."""
+    made = {}
+
+    def get(arch):
+        if arch not in made:
+            jcfg = jconfigs.get_smoke_config(arch)
+            with _legacy():
+                p = j_init_params(jax.random.PRNGKey(0), jcfg)
+            np_params = jax.tree.map(np.asarray, p)
+            made[arch] = (jcfg, configs.get_smoke_config(arch), np_params,
+                          params_from_numpy(np_params, device="cpu"))
+        return made[arch]
+
+    return get
+
+
+@pytest.fixture(scope="module")
+def smoke_params(dense_params):
+    return dense_params("qwen3-0.6b")[2:]
+
+
+def _cases(values):
+    """(arch, value) cases over the dense smoke configs; qwen3-0.6b's
+    cases keep the ids they had before the other archs joined."""
+    return [pytest.param(a, v, id=str(v) if a == "qwen3-0.6b" else f"{a}-{v}")
+            for a in configs.DENSE_ARCHS for v in values]
 
 
 def _tokens(seed, shape, vocab=256):
@@ -84,15 +122,15 @@ def _tokens(seed, shape, vocab=256):
 
 
 # ------------------------------------------------------------------ forward
-@pytest.mark.parametrize("seq", [5, 40])
-def test_forward_logits_match_reference(smoke_params, seq):
-    np_params, t_params = smoke_params
+@pytest.mark.parametrize("arch,seq", _cases([5, 40]))
+def test_forward_logits_match_reference(dense_params, arch, seq):
+    jcfg, tcfg, np_params, t_params = dense_params(arch)
     toks = _tokens(seq, (2, seq))
     want, want_aux, want_kv = j_forward(jax.tree.map(jnp.asarray, np_params),
-                                        {"tokens": jnp.asarray(toks)}, J_SMOKE,
+                                        {"tokens": jnp.asarray(toks)}, jcfg,
                                         collect_cache=True)
     got, aux, kv = forward(t_params, {"tokens": torch.from_numpy(toks)},
-                           SMOKE_CONFIG, collect_cache=True)
+                           tcfg, collect_cache=True)
     assert got.dtype == torch.float32 and got.shape == (2, seq, 256)
     _close(got, want)
     _close(kv["k"], want_kv["k"])
@@ -100,22 +138,23 @@ def test_forward_logits_match_reference(smoke_params, seq):
     assert float(aux) == float(want_aux)
 
 
-def test_prefill_and_decode_match_reference(smoke_params):
-    np_params, t_params = smoke_params
+@pytest.mark.parametrize("arch", configs.DENSE_ARCHS)
+def test_prefill_and_decode_match_reference(dense_params, arch):
+    jcfg, tcfg, np_params, t_params = dense_params(arch)
     jp = jax.tree.map(jnp.asarray, np_params)
     toks = _tokens(1, (3, 7))
-    want_last, jcache = j_prefill(jp, {"tokens": jnp.asarray(toks)}, J_SMOKE, max_len=12)
+    want_last, jcache = j_prefill(jp, {"tokens": jnp.asarray(toks)}, jcfg, max_len=12)
     got_last, cache = prefill(t_params, {"tokens": torch.from_numpy(toks)},
-                              SMOKE_CONFIG, max_len=12)
+                              tcfg, max_len=12)
     _close(got_last, want_last)
     for name in ("k", "v"):
         _close(cache[name], jcache[name])
     np.testing.assert_array_equal(cache["pos"].numpy(), np.asarray(jcache["pos"]))
     cur = np.argmax(np.asarray(want_last), -1).astype(np.int32)[:, None]
     for _ in range(6):   # 7 + 6 > 12: the last writes fall outside the cache
-        want, jcache = j_decode_step(jp, jcache, {"tokens": jnp.asarray(cur)}, J_SMOKE)
+        want, jcache = j_decode_step(jp, jcache, {"tokens": jnp.asarray(cur)}, jcfg)
         got, cache = decode_step(t_params, cache, {"tokens": torch.from_numpy(cur)},
-                                 SMOKE_CONFIG)
+                                 tcfg)
         _close(got, want)
         for name in ("k", "v"):
             _close(cache[name], jcache[name])
@@ -189,16 +228,16 @@ def _margins(logits: np.ndarray) -> np.ndarray:
     return top2[..., 1] - top2[..., 0]
 
 
-@pytest.mark.parametrize("temperature", [0.0, 0.7])
-def test_digital_generate_matches_reference(smoke_params, temperature):
-    np_params, t_params = smoke_params
+@pytest.mark.parametrize("arch,temperature", _cases([0.0, 0.7]))
+def test_digital_generate_matches_reference(dense_params, arch, temperature):
+    jcfg, tcfg, np_params, t_params = dense_params(arch)
     toks = _tokens(4, (2, 6))
     with _legacy():
-        jeng = JServeEngine(J_SMOKE, jax.tree.map(jnp.asarray, np_params),
+        jeng = JServeEngine(jcfg, jax.tree.map(jnp.asarray, np_params),
                             temperature=temperature)
         want = np.asarray(jeng.generate(jnp.asarray(toks), max_new=5,
                                         key=jax.random.PRNGKey(9)))
-    eng = ServeEngine(SMOKE_CONFIG, t_params, temperature=temperature)
+    eng = ServeEngine(tcfg, t_params, temperature=temperature)
     got = eng.generate(torch.from_numpy(toks), max_new=5, key=_tk(jax.random.PRNGKey(9)))
     assert got.dtype == torch.int32 and got.shape == (2, 5)
     np.testing.assert_array_equal(got.numpy(), want)
@@ -276,3 +315,48 @@ def test_generate_stops_at_eos(smoke_params):
     eos = int(full[0, 1])
     out = eng.generate(toks, max_new=6, eos_id=eos)
     assert out.shape[1] == 2 and torch.equal(out, full[:, :2])
+
+
+@pytest.fixture(scope="module")
+def smollm_deployment():
+    """smollm-360m's smoke config (d_model 60, kv_dim 20) deployed by the
+    reference, carried across."""
+    jcfg = jconfigs.get_smoke_config("smollm-360m")
+    with _legacy():
+        params = j_init_params(jax.random.PRNGKey(0), jcfg)
+        wv = JWVConfig(method=JWVMethod.HARP, max_fine_iters=12, max_coarse_iters=4)
+        # One bucket for its 3888 columns: one compiled dispatch.
+        jmodel, _ = j_deploy_arrays(jax.random.PRNGKey(1), params, wv,
+                                    min_bucket=4096, max_bucket=4096)
+    return jcfg, configs.get_smoke_config("smollm-360m"), jmodel, carry_deployment(jmodel)
+
+
+def test_noisy_analog_partial_tile_matches_reference(smollm_deployment):
+    """Noisy analog prefill and decode on smollm's smoke config in 32-row
+    macros: its 60-row inputs fill one tile and end in a 28-row one."""
+    jcfg, tcfg, jmodel, tmodel = smollm_deployment
+    cim = dict(NOISY, macro_rows=32)
+    toks = _tokens(8, (2, 6))
+    with _legacy():
+        jeng = JServeEngine(jcfg, executor=JCIMExecutor(
+            jmodel, JCIMConfig(**cim), jax.random.PRNGKey(51)))
+        jlast, jcache = jeng._prefill(jeng.access_params(12), {"tokens": jnp.asarray(toks)})
+        j_steps = [np.asarray(jlast)]
+        feeds = [np.argmax(j_steps[-1], -1).astype(np.int32)[:, None]]
+        for _ in range(2):
+            _, logits, jcache = jeng._decode(jeng.access_params(2), jcache,
+                                             {"tokens": jnp.asarray(feeds[-1])}, None)
+            j_steps.append(np.asarray(logits)[:, -1])
+            feeds.append(np.argmax(j_steps[-1], -1).astype(np.int32)[:, None])
+    ex = CIMExecutor(tmodel, CIMConfig(**cim), _tk(jax.random.PRNGKey(51)))
+    wq = ex.params()["layers"]["wq"]
+    assert (wq.rows_in, wq.n_tiles, wq.tile_rows) == (60, 2, 32)
+    eng = ServeEngine(tcfg, executor=ex)
+    last, cache = eng._prefill(eng.access_params(12), {"tokens": torch.from_numpy(toks)})
+    steps = [last]
+    for i in range(2):
+        _, logits, cache = eng._decode(eng.access_params(2), cache,
+                                       {"tokens": torch.from_numpy(feeds[i])})
+        steps.append(logits[:, -1])
+    for got, want in zip(steps, j_steps):
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=SERVE_ATOL)
