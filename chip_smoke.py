@@ -121,7 +121,25 @@ CUDA toolkit.  Phases, each of which fails the run:
    kv_dim 320) is deployed and served with ideal converters against its
    digital forward.  `fwht`, `wv_step` and `acim_vmm_tiled` are held and
    timed on this phase's operands (llama's w_down and w_gate, smollm's
-   partial-tile wq and 320-wide wk).
+   partial-tile wq and 320-wide wk);
+14. families: each non-dense registry model (`FAMILY_RUNS`: olmoe and
+   qwen3-moe, rwkv6, hymba, the VLM, musicgen) at full width in bf16,
+   depth cut, runs `prefill` over its prompt and 8 `decode_step`s for
+   batch 2; the last step is held against `forward` over the whole
+   sequence at that position (within `FAMILY_TOL` of the largest
+   logit).  An MoE model's capacity couples the tokens of a call: at
+   its registry capacity factor the forward's drop counts are printed
+   and only rows that capacity routed alike in the prefill and the
+   forward are held; then, on the same params and inputs, with the
+   capacity lifted to every token, every row is held.  Then hymba-1.5b at 3 layers is deployed by HARP through
+   `torch_serve_lm.py`'s `deploy_model` (one host sync, telemetry held
+   as phase 13's), served at the script's fixed-batch analog defaults
+   (batch 4, prompt 32, 32 new tokens, DAC 6 / ADC 10 bits, read noise
+   0.2 LSB; 21 `acim_vmm_tiled` launches per access) and with ideal
+   converters against its digital forward; `acim_vmm_tiled` is held and
+   timed at decode on its w_down (K = 5504, 43 tiles), wk (M = 320) and
+   w_gate (M = 5504), and `fwht` / `wv_step` on w_down's first fine
+   iteration.
 
 The line before the last is a JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -159,6 +177,17 @@ VERIFY_SIGMA = 0.7               # phases 11-12: fig10's severe verify read nois
 FIG10_STEPS = 220                # phase 12: `fig10_robustness._train_tiny_lm`'s steps
 REGISTRY_LAYERS = 1              # phase 13: depth of llama3.2-1b and smollm-360m
 REGISTRY_REQUESTS = 16           # phase 13: `torch_serve_lm.py`'s default request count
+# Phase 14: each family's registry model at full width, depth cut:
+# (arch, layers, prompt tokens).  The VLM keeps two cross groups of 5
+# layers: at 5 layers (cross_attn_every == n_layers) the reference's
+# forward skips its cross block (ROADMAP.md C10).
+FAMILY_RUNS = (("olmoe-1b-7b", 2, 256), ("qwen3-moe-235b-a22b", 1, 256),
+               ("rwkv6-1.6b", 2, 256), ("hymba-1.5b", 3, 1100),
+               ("llama-3.2-vision-11b", 10, 256), ("musicgen-medium", 2, 256))
+FAMILY_BATCH = 2                 # phase 14: sequences per model
+FAMILY_STEPS = 8                 # phase 14: decode steps after the prefill
+FAMILY_TOL = 0.05                # phase 14: bf16 decode vs forward, of the largest logit
+HYMBA_LAYERS = 3                 # phase 14: hymba-1.5b's depth for the deploy and serve
 
 
 def _nvidia_smi() -> str:
@@ -627,9 +656,10 @@ def _print_vmm(w, cfg, out: dict, what: str = "w_gate layer 0") -> None:
 
 def _ideal_check(model, cfg, tokens, what: str) -> None:
     """Ideal converters in float32 reproduce the digital forward of the
-    same arrays' `materialize()`: prefill logits within atol 2e-3 + rtol
-    1e-3 (float32 sums over up to 3072 rows in another association), and
-    greedy tokens equal over 8 decode steps."""
+    same arrays' `materialize()` (the analog leaves in float32, the
+    others as the executor serves them): prefill logits within atol 2e-3
+    + rtol 1e-3 (float32 sums over up to 5504 rows in another
+    association), and greedy tokens equal over 8 decode steps."""
     import torch
 
     from repro_torch.cim import CIMConfig, CIMExecutor
@@ -639,12 +669,15 @@ def _ideal_check(model, cfg, tokens, what: str) -> None:
     from repro_torch.serving import ServeEngine
 
     cfg32 = cfg.replace(dtype=torch.float32)
-    digital = fill_names(model.names, {
-        **model.digital,
-        **{n: st.materialize(dtype=torch.float32) for n, st in model.arrays.items()}})
     ideal = CIMExecutor(model, CIMConfig(dac_bits=None, adc_bits=None,
                                          sigma_read_lsb=0.0),
                         rng.PRNGKey(SEED + 2, device="cuda"))
+    # The analog leaves read back in float32; every other deployed leaf as
+    # the executor serves it (materialized in its own dtype: bf16 for
+    # hymba's SSM branch).
+    digital = fill_names(model.names, {
+        **model.digital, **ideal._digital,
+        **{n: model.arrays[n].materialize(dtype=torch.float32) for n in ideal._analog}})
     la, _, _ = forward(ideal.params(), {"tokens": tokens}, cfg32)
     ld, _, _ = forward(digital, {"tokens": tokens}, cfg32)
     err = float((la - ld).abs().max())
@@ -2262,6 +2295,245 @@ def phase_registry(gen) -> dict:
                 smollm_wall_s=sdep["wall_s"], verdicts=verdicts)
 
 
+def _family_batch(cfg, seq: int, gen) -> dict:
+    """Random inputs of `cfg`'s frontend: tokens, or frame embeddings for
+    the stub frontend, and the conditioning where it has one."""
+    import torch
+
+    b = FAMILY_BATCH
+    batch = {}
+    if cfg.frontend == "embed_stub":
+        batch["embeds"] = torch.randn(b, seq, cfg.d_model, device="cuda",
+                                      generator=gen).to(cfg.dtype)
+    else:
+        batch["tokens"] = torch.randint(0, cfg.vocab_size, (b, seq), device="cuda",
+                                        generator=gen, dtype=torch.int32)
+    if cfg.cross_kv_len:
+        batch["cond"] = torch.randn(b, cfg.cross_kv_len, cfg.cross_d_cond, device="cuda",
+                                    generator=gen).to(cfg.dtype)
+    return batch
+
+
+def _routed_alike(pre_log, fwd_log, prompt: int) -> tuple[list[int], list[bool]]:
+    """From the keep masks (`moe.record_routing`, one (B * S, k) mask per
+    MoE layer, tokens row-major) of a prefill over `prompt` positions and
+    of the forward over the whole sequence: each row's dropped (token,
+    choice) pairs in the forward, and whether the row was routed alike in
+    both (the same pairs dropped over the prompt, none over the decode
+    positions, which a decode step's capacity never drops)."""
+    import torch
+
+    b = FAMILY_BATCH
+    dropped = [0] * b
+    alike = [True] * b
+    for pre, fwd in zip(pre_log, fwd_log):
+        pre, fwd = pre.reshape(b, prompt, -1), fwd.reshape(b, -1, pre.shape[-1])
+        for r in range(b):
+            dropped[r] += int((~fwd[r]).sum())
+            alike[r] &= torch.equal(pre[r], fwd[r, :prompt]) and bool(fwd[r, prompt:].all())
+    return dropped, alike
+
+
+def _decode_vs_forward(params, cfg, batch: dict, prompt: int) -> dict:
+    """`prefill` over `prompt` positions, `FAMILY_STEPS` decode steps,
+    then `forward` over the whole sequence; the last step against the
+    forward at its position, over the rows that capacity routed alike
+    (every row where the model has no MoE)."""
+    import torch
+
+    from repro_torch.models import decode_step, forward, moe, prefill
+
+    seq = prompt + FAMILY_STEPS
+
+    def upto(a: int, b: int) -> dict:
+        return {k: (v[:, a:b] if k in ("tokens", "embeds") else v) for k, v in batch.items()}
+
+    with torch.no_grad():
+        with moe.record_routing() as pre_log:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, cache = prefill(params, upto(0, prompt), cfg, max_len=seq)
+            torch.cuda.synchronize()
+            prefill_ms = (time.perf_counter() - t0) * 1e3
+        host_ms = []
+        for t in range(prompt, seq):
+            t0 = time.perf_counter()
+            logits, cache = decode_step(params, cache, upto(t, t + 1), cfg)
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        with moe.record_routing() as fwd_log:
+            full, aux, _ = forward(params, batch, cfg)
+        torch.cuda.synchronize()
+    dropped, alike = _routed_alike(pre_log, fwd_log, prompt)
+    rows = [b for b in range(FAMILY_BATCH) if alike[b]]
+    got, want = logits[:, 0].float(), full[:, seq - 1].float()
+    err = scale = None
+    if rows:
+        scale = float(want[rows].abs().max())
+        err = float((got[rows] - want[rows]).abs().max()) / scale
+    finite = bool(torch.isfinite(full).all()) and bool(torch.isfinite(logits).all())
+    head = (cfg.n_codebooks,) if cfg.n_codebooks > 1 else ()
+    if not finite or tuple(full.shape) != (FAMILY_BATCH, seq, *head, cfg.vocab_size) \
+            or int(cache["pos"][0]) != seq - 1:
+        raise AssertionError(f"{cfg.name}: logits finite={finite}, shape "
+                             f"{tuple(full.shape)}, pos {int(cache['pos'][0])}")
+    return dict(err=err, scale=scale, rows=rows, dropped=dropped, aux=float(aux),
+                prefill_ms=prefill_ms, step_host_ms=statistics.median(host_ms),
+                step_host_min_ms=min(host_ms))
+
+
+def _family_case(arch: str, layers: int, prompt: int, gen) -> dict:
+    """One registry model at full width, `layers` deep (`_decode_vs_forward`).
+
+    An MoE model runs twice on the same params and inputs: at its
+    registry capacity factor, where the forward's drop counts are
+    printed and only rows routed alike are held, and with the capacity
+    lifted to every token (``capacity_factor = experts / top_k``), where
+    nothing drops and every row is held."""
+    import torch
+
+    from repro_torch import pytree
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    cfg = get_config(arch).replace(n_layers=layers)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(SEED, cfg, device="cuda")
+    n_params = sum(t.numel() for t in pytree.leaves(params))
+    batch = _family_batch(cfg, prompt + FAMILY_STEPS, gen)
+    variants = [("", cfg)]
+    if cfg.is_moe:
+        variants.append(("capacity lifted, ",
+                         cfg.replace(capacity_factor=cfg.moe_experts / cfg.moe_top_k)))
+    out = {}
+    for label, vcfg in variants:
+        out[label] = r = _decode_vs_forward(params, vcfg, batch, prompt)
+        cap = f"capacity factor {vcfg.capacity_factor:g}: " if cfg.is_moe else ""
+        print(f"  {arch} ({label}{cap}{layers} of {get_config(arch).n_layers} layers, "
+              f"d_model {cfg.d_model}, {n_params / 1e9:.3f} B params {cfg.dtype}, prompt "
+              f"{prompt}): prefill {r['prefill_ms']:.1f} ms; decode step host ms median "
+              f"{r['step_host_ms']:.2f} (min {r['step_host_min_ms']:.2f})")
+        held = ("no row routed alike" if r["err"] is None else
+                f"max |diff| {r['err']:.4g} of the largest logit {r['scale']:.4g}")
+        print(f"    last decode step vs forward at position {prompt + FAMILY_STEPS - 1}, "
+              f"rows {r['rows']}: {held}; aux {r['aux']:.4g}"
+              + (f"; the forward dropped {r['dropped']} (token, choice) pairs per row"
+                 if cfg.is_moe else ""))
+        must_hold = label or not cfg.is_moe
+        if must_hold and len(r["rows"]) != FAMILY_BATCH:
+            raise AssertionError(f"{arch}: rows {r['rows']} routed alike, expected all")
+        if r["err"] is not None and not r["err"] <= FAMILY_TOL:
+            raise AssertionError(f"{arch}: decode differs from forward by {r['err']:.4g} of "
+                                 f"the largest logit (tolerance {FAMILY_TOL})")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    print(f"    peak {peak_gib:.2f} GiB")
+    del params, batch
+    torch.cuda.empty_cache()
+    return dict(arch=arch, layers=layers, prompt=prompt, peak_gib=peak_gib,
+                runs={label.rstrip(", ") or "registry": r for label, r in out.items()})
+
+
+def phase_families(gen) -> dict:
+    """Phase 14: the other model families at full width.
+
+    (a) Each of `FAMILY_RUNS` from `get_config(arch).replace(n_layers=...)`
+    in its bf16, params from `SEED` on the card: `_family_case`.
+    (b) hymba-1.5b at `HYMBA_LAYERS` layers (about 129 M weights): its
+    params made and deployed as `torch_serve_lm.py --arch hymba-1.5b
+    --analog` makes them (`_registry_deploy`: one host sync, 3 `fwht`
+    and 1 `wv_step` per bucket-iteration, telemetry against the report),
+    served by `ServeEngine.generate` at the script's fixed-batch defaults
+    through its `make_executor` (7 analog leaves x 3 layers = 21
+    `acim_vmm_tiled` launches per access, tokens in the vocabulary,
+    finite logits), and with ideal converters against the digital
+    forward of its materialized arrays (`_ideal_check`).  Then the
+    kernels on this deploy's own operands: `acim_vmm_tiled` at decode
+    (B = 40) on w_down (K = 5504: 43 tiles of 128 rows), wk (M = 320)
+    and w_gate (M = 5504); `fwht` and `wv_step` on w_down's first fine
+    iteration.
+    """
+    import torch
+
+    from repro_torch.cim import build_weight
+    from repro_torch.configs import get_config
+    from repro_torch.core import rng
+    from repro_torch.kernels.acim_vmm import ops as vmm_ops
+    from repro_torch.models import init_params
+    from repro_torch.serving import ServeEngine
+
+    print(f"families: batch {FAMILY_BATCH}, prefill then {FAMILY_STEPS} decode steps, the "
+          f"last held against the forward (tolerance {FAMILY_TOL} of the largest logit)")
+    runs = [_family_case(arch, layers, prompt, gen) for arch, layers, prompt in FAMILY_RUNS]
+
+    serve_lm = _example("torch_serve_lm")
+    args = serve_lm.build_parser().parse_args(["--arch", "hymba-1.5b", "--analog"])
+    cfg = get_config(args.arch).replace(n_layers=HYMBA_LAYERS)
+    print(f"families: {cfg.name} at full width (d_model {cfg.d_model}, {cfg.n_heads} / "
+          f"{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, ssm_state "
+          f"{cfg.ssm_state}, window {cfg.sliding_window}), {cfg.n_layers} of 32 layers")
+    params = init_params(0, cfg, device="cuda")     # as torch_serve_lm.run makes them
+    dep = _registry_deploy(serve_lm, params, cfg.name)
+    del params
+    model = dep["model"]
+    ex = serve_lm.make_executor(model, args, "cuda")
+    engine = ServeEngine(cfg, executor=ex)
+    prompts = rng.randint(rng.PRNGKey(2, device="cuda"), (args.batch, args.prompt_len),
+                          0, cfg.vocab_size)
+    leaves = ex.summary()["analog_leaves"]
+    if leaves != 7:
+        raise AssertionError(f"{cfg.name}: {leaves} analog leaves, expected 7")
+    torch.cuda.synchronize()
+    vmm_ops.launches = vmm_ops.launches_single = 0
+    t0 = time.perf_counter()
+    out = engine.generate(prompts, max_new=args.max_new)
+    torch.cuda.synchronize()
+    gen_wall = time.perf_counter() - t0
+    launches = dict(dep["launches"], acim_vmm_tiled=vmm_ops.launches,
+                    acim_vmm=vmm_ops.launches_single)
+    want = leaves * cfg.n_layers * args.max_new
+    if launches["acim_vmm_tiled"] != want:
+        raise AssertionError(f"{cfg.name}: generate launched acim_vmm_tiled "
+                             f"{launches['acim_vmm_tiled']} times, expected {want}")
+    if out.shape != (args.batch, args.max_new) or not bool(
+            ((out >= 0) & (out < cfg.vocab_size)).all()):
+        raise AssertionError(f"{cfg.name}: generated {tuple(out.shape)} outside the vocabulary")
+    print(f"  served (DAC {args.dac_bits}, ADC {args.adc_bits} bits, read noise "
+          f"{args.read_noise} LSB), batch {args.batch}, prompt {args.prompt_len}, "
+          f"{args.max_new} new tokens: generate wall {gen_wall:.2f} s "
+          f"({args.batch * args.max_new / gen_wall:.2f} tokens/s incl. prefill); "
+          f"acim_vmm_tiled launches {launches['acim_vmm_tiled']} "
+          f"({leaves * cfg.n_layers} per access); first sequence {out[0].tolist()}")
+    _ideal_check(model, cfg, prompts, cfg.name)
+
+    # The kernels on this deploy's operands.
+    cim = ex.cfg
+    vmm = {}
+    for leaf in ("w_down", "wk", "w_gate"):
+        w = build_weight(model.arrays[f"['layers']['{leaf}']"], cim,
+                         rng.PRNGKey(0, device="cuda")).layer(0)
+        case = f"{cfg.name} {leaf} decode"
+        vmm[case] = _vmm_case(w, cim, args.batch, w.n_tiles, False, gen, case)
+        _print_vmm(w, cim, {case: vmm[case]}, f"{cfg.name} {leaf} layer 0")
+    st = model.arrays["['layers']['w_down']"]
+    c = min(C_DEPLOY, int(st.targets.shape[0]))
+    wv_args, p = _first_fine_iteration(rng.PRNGKey(1, device="cuda"), st, model.wv_cfg, c)
+    kcases = {
+        "wv_step": [dict(_wv_case(wv_args, p),
+                         case=f"{cfg.name} w_down, first fine iteration, C={c}")],
+        "fwht": [dict(phase_fwht(model.wv_cfg.n_cells, gen, x=wv_args[2]),
+                      case=f"{cfg.name} w_down, first verify's conductances, C={c}")],
+    }
+    for name, rr in kcases.items():
+        r = rr[0]
+        print(f"  {name} on {r['case']}: ms={r['ms']:.4f} ({r['stream_ms']:.4f}) plain_ms="
+              f"{r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
+              f"max_abs_err={r['max_abs_err']:.3g}")
+    del ex, engine, model, dep, st, wv_args
+    torch.cuda.empty_cache()
+    return dict(runs=runs, launches=launches, kcases=kcases, vmm=vmm, gen_wall_s=gen_wall)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=4,
@@ -2351,6 +2623,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     stamp("registry phase")
     reg = phase_registry(gen)
+    torch.cuda.empty_cache()
+    stamp("families phase")
+    fams = phase_families(gen)
     stamp("done")
 
     main_fwht, main_wv = k[("fwht", 32)], k[("wv_step", 32, True)]
@@ -2398,6 +2673,12 @@ def main() -> int:
             {k: r[k] for k in ("case", "ms", "plain_ms", "bound_ms", "bound_by",
                                "library_ms", "max_abs_err")}
             for r in reg["kcases"][entry["name"]]]
+        # Phase 14: hymba-1.5b's deploy, and the kernel on its operands.
+        entry["launches_families"] = fams["launches"][entry["name"]]
+        entry["families_case"] = [
+            {k: r[k] for k in ("case", "ms", "plain_ms", "bound_ms", "bound_by",
+                               "library_ms", "max_abs_err")}
+            for r in fams["kcases"][entry["name"]]]
     for name, case, src_line in (("acim_vmm_tiled", "decode", 166),
                                  ("acim_vmm", "one tile", 230)):
         r = vmm[case]
@@ -2420,6 +2701,12 @@ def main() -> int:
             launches_train=loop["launches"][name],
             launches_fig10=fig10["launches"][name],
             launches_registry=reg["launches"][name],
+            launches_families=fams["launches"][name],
+            families_case=[dict(case=c, ms=o["ms"], plain_ms=o["plain_ms"],
+                                bound_ms=o["bound_ms"], bound_by=o["bound_by"],
+                                library_ms=o["library_ms"], max_abs_err=o["max_abs_err"],
+                                shape=f"B={o['b']} T={o['tiles']}")
+                           for c, o in fams["vmm"].items() if tiled],
             # The same kernel's other rows of phases 7 and 9 (route "raw" = f32).
             other_cases={c: dict(ms=o["ms"], bound_ms=o["bound_ms"], bound_by=o["bound_by"],
                                  plain_ms=o["plain_ms"], library_ms=o["library_ms"],

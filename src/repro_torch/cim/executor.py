@@ -37,7 +37,9 @@ from .tile import CIMWeight, broadcast_key, build_weight
 __all__ = ["CIMExecutor", "analog_eligible"]
 
 # Leaves consumed by `models.layers.matmul` once a layer is sliced out of
-# the stack.  Other deployed leaves are served through materialize().
+# the stack.  Every other deployed leaf (MoE expert stacks and routers,
+# RWKV6 projections, the SSM branch, cross-attention projections,
+# multi-codebook heads) is served digitally through materialize().
 _LAYER_MATMUL_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 
 

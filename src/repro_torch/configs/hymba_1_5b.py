@@ -4,9 +4,6 @@
 Sliding-window attention (1024) everywhere except 3 global layers
 (first / middle / last).  Runs long_500k: global layers keep full caches
 (3 x 500k), SWA layers keep 1024-slot ring buffers, SSM state is O(1).
-In the port this configuration is data only: its model family is not
-ported yet (ROADMAP.md A4), so building or running it raises
-`NotImplementedError`.
 """
 
 import torch

@@ -5,9 +5,6 @@
 cross-attention block every 5 decoder layers attends to image patch
 embeddings.  The vision tower is a STUB per the task spec: input_specs()
 supplies precomputed patch embeddings (B, 1601, d_cond).
-In the port this configuration is data only: its model family is not
-ported yet (ROADMAP.md A4), so building or running it raises
-`NotImplementedError`.
 """
 
 import torch

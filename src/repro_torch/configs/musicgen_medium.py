@@ -6,9 +6,6 @@ decoded with the delay pattern -> 4 parallel output heads; sinusoidal
 positions; text-conditioning cross-attention every layer.  The EnCodec
 frontend is a STUB per the task spec: input_specs() supplies precomputed
 frame embeddings (sum of codebook embeddings) and T5 text embeddings.
-In the port this configuration is data only: its model family is not
-ported yet (ROADMAP.md A4), so building or running it raises
-`NotImplementedError`.
 """
 
 import torch

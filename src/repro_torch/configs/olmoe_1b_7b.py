@@ -1,9 +1,6 @@
 """olmoe-1b-7b [moe] — 64 experts, top-8 [arXiv:2409.02060; hf].
 
 16L d_model=2048 16H (MHA kv=16) per-expert d_ff=1024 vocab=50304.
-In the port this configuration is data only: its model family is not
-ported yet (ROADMAP.md A4), so building or running it raises
-`NotImplementedError`.
 """
 
 import torch

@@ -3,9 +3,6 @@
 94L d_model=4096 64H (GQA kv=4) per-expert d_ff=1536 vocab=151936, qk-norm.
 Optimizer states ride in bf16 so params+grads+m+v fit the single-pod HBM
 budget (DESIGN.md Sec. 4).
-In the port this configuration is data only: its model family is not
-ported yet (ROADMAP.md A4), so building or running it raises
-`NotImplementedError`.
 """
 
 import torch

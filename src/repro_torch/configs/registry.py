@@ -4,10 +4,9 @@
 (arch x shape) pair, minus long_500k for pure full-attention archs; only
 the SSM/hybrid archs (rwkv6, hymba) run the 524288-context decode cell.
 
-The port runs the dense attention archs (qwen3-0.6b, llama3.2-1b,
-smollm-360m, tinyllama-1.1b).  The other six are data only: building
-their models, or a decode spec's cache, raises `NotImplementedError`
-(ROADMAP.md A4).
+The port builds and runs every arch: the four dense attention archs
+(`DENSE_ARCHS`) and the MoE, RWKV6, hybrid, VLM and MusicGen families.
+A decode spec's cache is the family's `init_cache`.
 
 `input_specs` returns tensors on the ``meta`` device, PyTorch's
 counterpart of the reference's `ShapeDtypeStruct`: shapes and dtypes
@@ -47,8 +46,8 @@ ARCHS: dict[str, str] = {
     "musicgen-medium": "musicgen_medium",
 }
 
-# The archs whose models the port builds and runs (the dense attention
-# stack); the rest raise `NotImplementedError` (ROADMAP.md A4).
+# The archs of the plain dense attention stack (no MoE, recurrence,
+# cross-attention or multi-codebook head).
 DENSE_ARCHS = ("qwen3-0.6b", "llama3.2-1b", "smollm-360m", "tinyllama-1.1b")
 
 

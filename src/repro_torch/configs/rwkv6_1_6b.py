@@ -2,9 +2,6 @@
 
 24L d_model=2048 (attention-free) d_ff=7168 vocab=65536; 32 wkv heads of 64.
 Runs long_500k (O(1) recurrent state).
-In the port this configuration is data only: its model family is not
-ported yet (ROADMAP.md A4), so building or running it raises
-`NotImplementedError`.
 """
 
 import torch

@@ -1,5 +1,6 @@
 """Attention: chunked (flash-style) causal self-attention with GQA and a
-sliding window, and single-token decode over a KV cache.
+sliding window, non-causal cross-attention over conditioning tokens, and
+single-token decode over a KV cache.
 
 The prefill path keeps the reference's structure and so its numbers: an
 outer loop over query chunks, an inner loop over only the key/value
@@ -13,7 +14,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["NEG_INF", "chunked_causal_attention", "decode_attention"]
+__all__ = ["NEG_INF", "chunked_causal_attention", "cross_attention", "decode_attention"]
 
 NEG_INF = -1e30
 _F32 = torch.float32
@@ -105,3 +106,34 @@ def decode_attention(
     p = torch.softmax(s, dim=-1).to(v_cache.dtype)
     out = torch.einsum("bkgs,bskd->bkgd", p.to(_F32), v_cache.to(_F32))
     return out.reshape(b, 1, h, hd).to(q.dtype)
+
+
+def cross_attention(
+    q: torch.Tensor,          # (B, S, H, hd)
+    k: torch.Tensor,          # (B, T, KV, hd) conditioning keys
+    v: torch.Tensor,          # (B, T, KV, hd)
+    *,
+    chunk_q: int,
+) -> torch.Tensor:
+    """Unmasked cross-attention, chunked over the query axis only (the
+    conditioning context T, image patches or text tokens, is short);
+    GQA grouped as in the causal path."""
+    b, s, h, hd = q.shape
+    kv_heads = k.shape[2]
+    g = h // kv_heads
+    cq = min(chunk_q, s)
+    pad_q = (-s) % cq
+    if pad_q:
+        q = F.pad(q, (0, 0, 0, 0, 0, pad_q))
+    s_orig, s = s, s + pad_q
+    qg = q.reshape(b, s, kv_heads, g, hd)
+    kf, vf = k.to(_F32), v.to(_F32)
+    outs = []
+    for i in range(s // cq):
+        qi = qg[:, i * cq:(i + 1) * cq].to(_F32)
+        sc = torch.einsum("bqkgd,btkd->bqkgt", qi, kf) * hd ** -0.5
+        p = torch.softmax(sc, dim=-1).to(v.dtype)
+        out = torch.einsum("bqkgt,btkd->bqkgd", p.to(_F32), vf)
+        outs.append(out.to(q.dtype))
+    out = torch.stack(outs, dim=1).reshape(b, s, h, hd)
+    return out[:, :s_orig]

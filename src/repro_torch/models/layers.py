@@ -8,6 +8,9 @@ is applied in the activation dtype.
 
 from __future__ import annotations
 
+import math
+from typing import Any
+
 import torch
 import torch.nn.functional as F
 
@@ -15,8 +18,35 @@ from repro_torch.cim.mvm import cim_matmul, current_token_ids
 from repro_torch.cim.tile import CIMWeight
 from repro_torch.core.numerics import true_div
 
-__all__ = ["matmul", "rms_norm", "head_rms_norm", "swiglu", "rope_freqs",
-           "apply_rope", "cross_entropy_loss"]
+__all__ = ["truncated_normal", "dense_init", "slice_layer", "matmul", "rms_norm",
+           "head_rms_norm", "swiglu", "rope_freqs", "apply_rope",
+           "sinusoidal_positions", "cross_entropy_loss"]
+
+
+def truncated_normal(gen, shape, std, dtype, device) -> torch.Tensor:
+    """std * N(0, 1) truncated to [-2, 2], cast to `dtype`."""
+    x = torch.empty(shape, dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return (x * std).to(dtype)
+
+
+def dense_init(gen, n_layers, d_in, d_out, dtype, device, std=None) -> torch.Tensor:
+    """A stack of `n_layers` (d_in, d_out) weights, std 1/sqrt(d_in) unless
+    `std` is given (the reference's `dense_init` under a layer vmap)."""
+    std = std if std is not None else 1.0 / math.sqrt(d_in)
+    return truncated_normal(gen, (n_layers, d_in, d_out), std, dtype, device)
+
+
+def slice_layer(tree: Any, idx: int) -> Any:
+    """Layer `idx` of a stacked layer tree (the reference's
+    ``tree.map(lambda a: a[idx], lay)``); `CIMWeight` leaves slice every
+    tensor field through `CIMWeight.layer`, so a served leaf keeps its
+    `layer_id`."""
+    if isinstance(tree, dict):
+        return {k: slice_layer(v, idx) for k, v in tree.items()}
+    if isinstance(tree, CIMWeight):
+        return tree.layer(idx)
+    return tree[idx]
 
 
 def matmul(x: torch.Tensor, w) -> torch.Tensor:
@@ -71,10 +101,22 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.to(x.dtype)
 
 
+def sinusoidal_positions(positions: torch.Tensor, d_model: int) -> torch.Tensor:
+    """(..., S) -> (..., S, D) fixed sinusoidal embeddings (MusicGen-style),
+    float32."""
+    half = d_model // 2
+    dev = positions.device
+    log_base = torch.log(torch.full((), 10000.0, dtype=torch.float32, device=dev))
+    freqs = torch.exp(true_div(-log_base * torch.arange(half, dtype=torch.float32, device=dev),
+                               float(max(half - 1, 1))))
+    ang = positions[..., None].to(torch.float32) * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
                        mask: torch.Tensor) -> torch.Tensor:
-    """Mean next-token CE over masked positions; logits (B, S, V), taken
-    in float32."""
+    """Mean next-token CE over masked positions; logits (..., V) against
+    integer targets (...), taken in float32."""
     logits = logits.to(torch.float32)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, targets[..., None].to(torch.int64))[..., 0]

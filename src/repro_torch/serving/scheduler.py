@@ -286,10 +286,11 @@ class ContinuousScheduler:
         self.name = str(name)
         self._occ_digest = self._fresh_occupancy()
 
-        if cfg.block != "attn" or cfg.is_moe:
+        cache = init_cache(cfg, n_slots, max_len, device=self.device)
+        if set(cache) != {"k", "v", "pos"}:
             raise ValueError(
                 "continuous batching needs a pure attention cache (k/v/pos); "
-                f"got block={cfg.block} moe={cfg.is_moe}"
+                f"got {sorted(cache)} for block={cfg.block}"
             )
         if cfg.pos_embedding == "sinusoidal":
             raise ValueError(
@@ -298,7 +299,7 @@ class ContinuousScheduler:
             )
         if cfg.n_codebooks > 1:
             raise ValueError("multi-codebook heads are not admissible")
-        self.cache = init_cache(cfg, n_slots, max_len, device=self.device)
+        self.cache = cache
 
         # Each count bumps once when its step function is built, so a
         # steady-state serve asserts them flat.

@@ -33,7 +33,15 @@ state (gradients within 1e-4 of each leaf's max, losses within 1e-5,
 params within 5e-4 where the gradient is not tiny); the eval loss served
 through `acim_vmm_tiled` against the same loss with the wrapper replaced
 by its plain version (1e-5 with ideal converters, 1e-3 with the ADC and
-read noise on).
+read noise on).  The model families: each non-dense smoke config's
+forward, prefill and decode on the card against the CPU on the same
+float32 params (within 1e-4 of the largest logit: float32 sums in
+another order; MoE routing, capacity drops included, the same on both),
+and hymba's smoke model deployed on the card and served through
+`acim_vmm_tiled` (7 launches per layer and access, in the forward and in
+`ServeEngine.generate`) against the same forward with the wrapper
+replaced by its plain version (within 1e-5 of the largest logit, ideal
+converters).
 """
 
 import numpy as np
@@ -493,3 +501,85 @@ def test_in_array_eval_loss_kernel_vs_plain(cuda, cim, monkeypatch):
     plain = eval_loss()
     assert np.isfinite(kernel)
     assert abs(kernel - plain) <= (1e-5 if cim["adc_bits"] is None else 1e-3), (kernel, plain)
+
+
+_FAMILIES = ("olmoe-1b-7b", "qwen3-moe-235b-a22b", "rwkv6-1.6b", "hymba-1.5b",
+             "llama-3.2-vision-11b", "musicgen-medium")
+
+
+def _family_batch(cfg, s: int, device) -> dict:
+    gen = torch.Generator().manual_seed(s)
+    batch = {}
+    if cfg.frontend == "embed_stub":
+        batch["embeds"] = torch.randn(2, s, cfg.d_model, generator=gen)
+    else:
+        batch["tokens"] = torch.randint(0, cfg.vocab_size, (2, s), generator=gen,
+                                        dtype=torch.int32)
+    if cfg.cross_kv_len:
+        batch["cond"] = torch.randn(2, cfg.cross_kv_len, cfg.cross_d_cond, generator=gen)
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("arch", _FAMILIES)
+def test_family_on_card_matches_cpu(cuda, arch):
+    from repro_torch import pytree
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import decode_step, forward, init_params, prefill
+
+    cfg = get_smoke_config(arch)
+    params = init_params(0, cfg, device="cpu")
+    on_card = pytree.tree_map(lambda t: t.to(cuda), params)
+
+    def run(p, device):
+        batch = _family_batch(cfg, 19, device)
+        logits, _, _ = forward(p, batch, cfg)
+        pre = {k: (v[:, :15] if k in ("tokens", "embeds") else v) for k, v in batch.items()}
+        _, cache = prefill(p, pre, cfg, max_len=24)
+        steps = []
+        for t in range(15, 19):
+            one = {k: (v[:, t:t + 1] if k in ("tokens", "embeds") else v)
+                   for k, v in batch.items()}
+            lg, cache = decode_step(p, cache, one, cfg)
+            steps.append(lg)
+        return [logits] + steps
+
+    for got, want in zip(run(on_card, cuda), run(params, "cpu")):
+        err = (got.cpu() - want).abs().max() / want.abs().max()
+        assert err <= 1e-4, (arch, float(err))
+
+
+@pytest.mark.requires_cuda
+def test_hymba_served_on_card_kernel_vs_plain(cuda, monkeypatch):
+    from repro_torch.cim import CIMConfig, CIMExecutor
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import WVConfig, WVMethod, rng
+    from repro_torch.core.programmer import deploy_arrays
+    from repro_torch.models import forward, init_params
+    from repro_torch.serving import ServeEngine
+
+    cfg = get_smoke_config("hymba-1.5b")
+    params = init_params(0, cfg, device="cuda")
+    model, _ = deploy_arrays(rng.PRNGKey(1, device="cuda"), params,
+                             WVConfig(method=WVMethod.HARP, max_fine_iters=8,
+                                      max_coarse_iters=4), device="cuda")
+    toks = _family_batch(cfg, 12, cuda)["tokens"]
+    ideal = CIMConfig(dac_bits=None, adc_bits=None, sigma_read_lsb=0.0)
+
+    def served_logits():
+        ex = CIMExecutor(model, ideal, rng.PRNGKey(7, device="cuda"))
+        with torch.no_grad():
+            return forward(ex.params(), {"tokens": toks}, cfg)[0], ex
+
+    before = vmm_ops.launches
+    kernel, ex = served_logits()
+    assert vmm_ops.launches - before == 7 * cfg.n_layers and len(ex._analog) == 7
+    before = vmm_ops.launches
+    out = ServeEngine(cfg, executor=ex).generate(toks, 5)
+    assert vmm_ops.launches - before == 5 * 7 * cfg.n_layers
+    assert out.shape == (2, 5) and bool(((out >= 0) & (out < cfg.vocab_size)).all())
+    monkeypatch.setattr(vmm_ops, "acim_vmm_tiled",
+                        lambda x, gp, gn, *, bc, adc_bits, full_scale, noise=None:
+                        vmm_ref.acim_vmm_tiled(x, gp, gn, bc, adc_bits, full_scale, noise))
+    plain, _ = served_logits()
+    assert float((kernel - plain).abs().max() / plain.abs().max()) <= 1e-5

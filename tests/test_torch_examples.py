@@ -5,7 +5,9 @@ What each must give: the quickstart a row per WV method with finite
 numbers and Hadamard-domain verification (HD-PV) below CW-SC's error,
 as its closing line says; `torch_serve_lm.py` every request of its
 stream served in the vocabulary (analog, continuous) and a full
-fixed batch (digital); `torch_lifetime_serve.py` one aging epoch with
+fixed batch (digital), also for the MoE and hybrid archs, whose MoE
+stream is admitted whole-prompt, while the RWKV6 and stub-frontend archs
+are refused as `examples/serve_lm.py` refuses them; `torch_lifetime_serve.py` one aging epoch with
 a finite eval loss (`--policy none`: the scrub's verify and re-program
 are held in `tests/test_torch_lifetime.py`).  Parity of the paths
 underneath is held in the other `tests/test_torch_*.py` files.
@@ -77,6 +79,26 @@ def test_serve_lm_fixed_batch_runs_on_cpu(capsys):
     assert "first sequence" in capsys.readouterr().out
     assert obs.digests.get("serve.generate_us_per_token").count == 1
     assert [e["name"] for e in obs.trace.events() if e["ph"] == "X"] == ["serve.generate"]
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "qwen3-moe-235b-a22b", "hymba-1.5b"])
+def test_serve_lm_token_families_run_on_cpu(arch, capsys):
+    out = _load("torch_serve_lm").main(
+        ["--device", "cpu", "--arch", arch, "--batch", "2", "--prompt-len", "8",
+         "--max-new", "3"])
+    assert out["tokens"].shape == (2, 3) and int(out["tokens"].max()) < 256
+    assert f"arch={arch}" in capsys.readouterr().out
+
+
+def test_serve_lm_continuous_moe_and_refusals(capsys):
+    out = _load("torch_serve_lm").main(
+        ["--device", "cpu", "--arch", "olmoe-1b-7b", "--continuous", "--requests", "2",
+         "--max-new", "4"])
+    assert len(out["records"]) == 2
+    assert "served 2 requests" in capsys.readouterr().out
+    for arch in ("rwkv6-1.6b", "musicgen-medium"):
+        with pytest.raises(SystemExit, match="token-input arch"):
+            _load("torch_serve_lm").main(["--device", "cpu", "--arch", arch])
 
 
 def test_lifetime_serve_runs_on_cpu(capsys):

@@ -68,7 +68,16 @@ TRAIN_SLICE_MODULES = (
 )
 
 
-@pytest.mark.parametrize("rel", SLICE_MODULES + FAULT_SLICE_MODULES + TRAIN_SLICE_MODULES)
+# The modules of the model-family slice (MoE, RWKV6, the SSM branch,
+# cross-attention, sinusoidal positions, multi-codebook heads).
+FAMILY_SLICE_MODULES = (
+    "models/moe.py", "models/rwkv6.py", "models/ssm.py", "models/attention.py",
+    "models/layers.py", "models/transformer.py",
+)
+
+
+@pytest.mark.parametrize("rel", SLICE_MODULES + FAULT_SLICE_MODULES + TRAIN_SLICE_MODULES
+                         + FAMILY_SLICE_MODULES)
 def test_slice_module_is_checked(rel):
     assert PORT / rel in FILES
 

@@ -11,14 +11,15 @@ Tolerances:
   read as the port's `torch` dtypes of the same name;
 * `runnable_cells`, `ARCHS`, `SHAPES`: equal;
 * `input_specs`: the same tree paths, shapes and dtype names (meta
-  tensors against `ShapeDtypeStruct`s) for every dense arch x shape and
-  for the train and prefill specs of every arch; the decode spec of a
-  family the port does not run raises `NotImplementedError` naming
-  ROADMAP.md A4;
-* `materialize_inputs` on the four dense smoke configs: integers
-  bitwise; normals (``0.01 * normal``) within 4 ulp: a draw is within 3
-  ulp of the reference's (ROADMAP.md P2) and the product with 0.01
-  rounds once more.
+  tensors against `ShapeDtypeStruct`s) for every arch x shape, the
+  decode caches of every family included;
+* the decode spec of each non-dense family: its cache matches the
+  reference's, and `decode_step` of the family's smoke model takes the
+  materialized decode inputs (logits finite, of the reference's shape);
+* `materialize_inputs` on every smoke config: integers bitwise; normals
+  (``0.01 * normal``) within 4 ulp: a draw is within 3 ulp of the
+  reference's (ROADMAP.md P2) and the product with 0.01 rounds once
+  more.
 """
 
 import dataclasses
@@ -30,6 +31,7 @@ import torch
 
 from repro import configs as jconfigs
 from repro_torch import configs, pytree
+from repro_torch.models import decode_step, init_params
 
 ARCH_NAMES = sorted(jconfigs.ARCHS)
 SMALL = [configs.ShapeSpec(f"{k}_small", k, 16, 2) for k in ("train", "prefill", "decode")]
@@ -82,8 +84,7 @@ def _spec_leaves(specs, port: bool):
             for path, s in flat]
 
 
-SPEC_CASES = [(a, s) for a in ARCH_NAMES for s in jconfigs.SHAPES
-              if a in configs.DENSE_ARCHS or jconfigs.SHAPES[s].kind != "decode"]
+SPEC_CASES = [(a, s) for a in ARCH_NAMES for s in jconfigs.SHAPES]
 
 
 @pytest.mark.parametrize("arch,shape", SPEC_CASES)
@@ -96,8 +97,20 @@ def test_input_specs_match_reference(arch, shape):
 
 @pytest.mark.parametrize("arch", [a for a in ARCH_NAMES if a not in configs.DENSE_ARCHS])
 def test_decode_spec_of_unported_family_raises(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A4"):
-        configs.input_specs(configs.get_config(arch), configs.SHAPES["decode_32k"])
+    """Before these families were ported their decode spec raised; now
+    its cache is the reference's and drives the port's decode step."""
+    want = jconfigs.input_specs(jconfigs.get_config(arch), jconfigs.SHAPES["decode_32k"])
+    got = configs.input_specs(configs.get_config(arch), configs.SHAPES["decode_32k"])
+    assert _spec_leaves(got["cache"], True) == _spec_leaves(want["cache"], False)
+    cfg = configs.get_smoke_config(arch)
+    spec = next(s for s in SMALL if s.kind == "decode")
+    inputs = configs.materialize_inputs(cfg, spec, seed=5, device="cpu")
+    logits, cache = decode_step(init_params(0, cfg, device="cpu"), inputs["cache"],
+                                inputs["batch"], cfg)
+    head = (cfg.n_codebooks,) if cfg.n_codebooks > 1 else ()
+    assert tuple(logits.shape) == (spec.global_batch, 1, *head, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all())
+    assert sorted(cache) == sorted(inputs["cache"])
 
 
 def _ulp(a: np.ndarray, b: np.ndarray) -> int:
@@ -109,7 +122,7 @@ def _ulp(a: np.ndarray, b: np.ndarray) -> int:
 
 
 @pytest.mark.parametrize("kind", [s.kind for s in SMALL])
-@pytest.mark.parametrize("arch", configs.DENSE_ARCHS)
+@pytest.mark.parametrize("arch", ARCH_NAMES)
 def test_materialize_inputs_match_reference(arch, kind):
     spec = next(s for s in SMALL if s.kind == kind)
     jspec = jconfigs.ShapeSpec(*dataclasses.astuple(spec))

@@ -11,7 +11,8 @@ working directory or environment; checkpoints go under `tmp_path`.
 
 Tolerances:
 * `randint`, `SyntheticLM` batches: bitwise;
-* `cross_entropy_loss`, `loss_fn` on carried float32 params: rtol 1e-5;
+* `cross_entropy_loss`, `loss_fn` on carried float32 params (a
+  multi-codebook head included): rtol 1e-5;
 * gradients: each leaf within 1e-4 of its largest magnitude (float32
   sums in another order; measured ~1e-6);
 * `cosine_schedule` over ``0 .. total + 5``: within 2e-7 of the peak
@@ -43,6 +44,7 @@ import torch
 
 from repro.checkpoint import restore_checkpoint as j_restore
 from repro.checkpoint import save_checkpoint as j_save
+from repro.configs.musicgen_medium import SMOKE_CONFIG as J_MUSICGEN
 from repro.configs.qwen3_0_6b import SMOKE_CONFIG as J_SMOKE
 from repro.data import SyntheticLM as JSyntheticLM
 from repro.models import ModelConfig as JModelConfig
@@ -64,6 +66,7 @@ from repro_torch.checkpoint import (
     restore_checkpoint,
     save_checkpoint,
 )
+from repro_torch.configs.musicgen_medium import SMOKE_CONFIG as MUSICGEN
 from repro_torch.configs.qwen3_0_6b import SMOKE_CONFIG
 from repro_torch.convert import (
     params_from_numpy,
@@ -248,12 +251,30 @@ def test_loss_fn_matches_on_carried_params(which, tiny_state):
 
 
 def test_loss_fn_rejects_what_is_not_ported(tiny_state):
+    """A mesh is refused (ROADMAP.md A5).  Multi-codebook heads, refused
+    before the model families were ported, now give the reference's loss
+    on carried params: MusicGen's smoke config, (B, S, C) targets."""
     _, tcfg = tiny_cfgs()
     _, tb = _batch(0)
     with pytest.raises(NotImplementedError):
-        loss_fn(tiny_state[1].params, tb, tcfg.replace(n_codebooks=2))
-    with pytest.raises(NotImplementedError):
         loss_fn(tiny_state[1].params, tb, tcfg, mesh=object())
+    jcfg, mcfg = J_MUSICGEN, MUSICGEN
+    with _legacy():
+        np_params = jax.tree.map(np.asarray, j_init_params(jax.random.PRNGKey(2), jcfg))
+    rs = np.random.RandomState(4)
+    b, s, c = 2, 12, mcfg.n_codebooks
+    batch = {"embeds": rs.randn(b, s, mcfg.d_model).astype(np.float32),
+             "cond": rs.randn(b, mcfg.cross_kv_len, mcfg.cross_d_cond).astype(np.float32),
+             "targets": rs.randint(0, mcfg.vocab_size, (b, s, c)).astype(np.int32),
+             "mask": (rs.rand(b, s) < 0.8).astype(np.float32)}
+    with _legacy():
+        jl, jm = j_loss_fn(jax.tree.map(jnp.asarray, np_params),
+                           {k: jnp.asarray(v) for k, v in batch.items()}, jcfg)
+    tl, tm = loss_fn(params_from_numpy(np_params, device="cpu"),
+                     {k: torch.from_numpy(v) for k, v in batch.items()}, mcfg)
+    for k in ("loss", "ce", "router_aux"):
+        np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-5, atol=1e-7,
+                                   err_msg=k)
 
 
 def test_grads_match_per_leaf(tiny_state):
