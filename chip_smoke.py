@@ -139,7 +139,23 @@ CUDA toolkit.  Phases, each of which fails the run:
    converters against its digital forward; `acim_vmm_tiled` is held and
    timed at decode on its w_down (K = 5504, 43 tiles), wk (M = 320) and
    w_gate (M = 5504), and `fwht` / `wv_step` on w_down's first fine
-   iteration.
+   iteration;
+15. training on a device mesh: a world of one over NCCL and a (1, 1)
+   ("data", "model") mesh.  smollm-360m's full train state (32 layers,
+   d_model 960, vocab 49152) stored as `launch.shardings.state_sharding`
+   says; one sharded train step equals the plain step from the same
+   state bitwise (both under deterministic algorithms); olmoe-1b-7b's
+   expert-parallel `moe_block(mesh=)` at full width (64 experts, top 8,
+   batch 2 x 256) equals `moe_block(None)` bitwise; `compressed_psum`
+   over a pod axis of 1 keeps each row within half a quantisation step
+   and moves only int32 payloads; then `python -m
+   repro_torch.launch.train` at its defaults (smollm-360m at full width
+   and depth, seq 256, batch 8) runs `MESH_STEPS` steps with a failure
+   injected at `MESH_FAIL_AT` and again without: the first restarts once
+   and ends on the second's state, bitwise.  Step, block and compression
+   host / stream ms, checkpoint save / wait / restore host ms and the
+   phase's wall time are printed; the phase launches none of the port's
+   kernels (the reference's training reaches no Pallas kernel).
 
 The line before the last is a JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -188,6 +204,8 @@ FAMILY_BATCH = 2                 # phase 14: sequences per model
 FAMILY_STEPS = 8                 # phase 14: decode steps after the prefill
 FAMILY_TOL = 0.05                # phase 14: bf16 decode vs forward, of the largest logit
 HYMBA_LAYERS = 3                 # phase 14: hymba-1.5b's depth for the deploy and serve
+MESH_STEPS = 20                  # phase 15: the launcher's steps
+MESH_FAIL_AT = 15                # phase 15: the launcher's injected failure
 
 
 def _nvidia_smi() -> str:
@@ -2534,6 +2552,237 @@ def phase_families(gen) -> dict:
     return dict(runs=runs, launches=launches, kcases=kcases, vmm=vmm, gen_wall_s=gen_wall)
 
 
+def _stream_ms(fn, reps: int = 3) -> tuple[float, float]:
+    """(host ms, stream ms) of `fn()`, medians over `reps` calls: the host
+    clock around the call and a device sync, and CUDA events recorded
+    around the call on the current stream (the device's time for the
+    call's work, gaps the host leaves between its launches included)."""
+    import torch
+
+    host, stream = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        stream.append(start.elapsed_time(end))
+    return statistics.median(host), statistics.median(stream)
+
+
+def phase_mesh(smi: str) -> dict:
+    """Phase 15: training on a device mesh.  A world of one over NCCL and
+    a (1, 1) ("data", "model") mesh: smollm-360m's full train state
+    (`get_config`: 32 layers, d_model 960, vocab 49152; bf16 params,
+    float32 AdamW moments) stored as `state_sharding` says, one sharded
+    step against the plain step from the same state (bitwise, both under
+    deterministic algorithms), and their host and stream ms; olmoe-1b-7b's
+    `moe_block(mesh=)` at full width (one layer, 64 experts, top 8) on
+    batch 2 x 256 against `moe_block(None)` (bitwise, deterministic);
+    `compressed_psum` of smollm's params as a gradient tree over a pod
+    axis of 1 (each row's error within half its scale, the residual
+    exact, every payload int32); then `repro_torch.launch.train` at its
+    defaults (smollm-360m at full width and depth, seq 256, batch 8) for
+    `MESH_STEPS` steps with a failure at `MESH_FAIL_AT`, and again
+    without one: the first must restart once and end on the second's
+    state, bitwise.  Checkpoint save, wait and restore host ms and the
+    phase's wall time are printed.  The training path launches none of
+    the port's kernels (the reference's training reaches no Pallas
+    kernel), which is checked."""
+    import shutil
+    import warnings
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import kernels, pytree
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.distributed.sharding import P, NamedSharding, gather_tree, shard_tree
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import init_distributed, make_debug_mesh
+    from repro_torch.launch.shardings import shard_batch, state_sharding
+    from repro_torch.models.moe import init_moe_params, moe_block
+    from repro_torch.optim import AdamWConfig, compressed_psum, init_compression_state
+    from repro_torch.training import init_train_state, make_train_step
+
+    t_phase = time.perf_counter()
+    launches0 = kernels.launch_counts()
+    started = init_distributed("cuda")
+    try:
+        mesh = make_debug_mesh(1, 1, device="cuda")
+        cfg = get_config("smollm-360m")
+        opt = AdamWConfig(lr_peak=1e-3, state_dtype=cfg.opt_state_dtype)
+        state = init_train_state(SEED, cfg, opt, device="cuda")
+        sh = state_sharding(mesh, state, cfg)
+        sharded = shard_tree(state, sh)
+        n_bytes = sum(x.numel() * x.element_size() for x in pytree.leaves(state))
+        specs = sorted({str(tuple(s.spec)) for s in pytree.leaves(sh)})
+        data = SyntheticLM(cfg.vocab_size, 256, 8, seed=0, device="cuda")
+        batch = data.global_batch_at(0)._asdict()
+        sbatch = shard_batch(mesh, batch, 8)
+        plain = make_train_step(cfg, opt, total_steps=MESH_STEPS)
+        on_mesh = make_train_step(cfg, opt, mesh, total_steps=MESH_STEPS)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                s_plain, m_plain = plain(state, batch)
+                s_mesh, m_mesh = on_mesh(sharded, sbatch)
+                step_equal = _trees_equal(s_plain, gather_tree(s_mesh))
+                loss_equal = float(m_plain["loss"]) == float(m_mesh["loss"])
+                del s_plain, s_mesh
+                plain_ms = _stream_ms(lambda: plain(state, batch))
+                mesh_ms = _stream_ms(lambda: on_mesh(sharded, sbatch))
+
+                moe_cfg = get_config("olmoe-1b-7b")
+                g = torch.Generator(device="cuda").manual_seed(SEED)
+                layer = {k: v[0] for k, v in init_moe_params(g, moe_cfg, 1, "cuda").items()}
+                x = (torch.randn(2, 256, moe_cfg.d_model, device="cuda", generator=g)
+                     .to(moe_cfg.dtype))
+                specs_moe = {"router": P(), "w_gate": P("model", "data", None),
+                             "w_up": P("model", "data", None),
+                             "w_down": P("model", None, "data")}
+                layer_sh = {k: NamedSharding(mesh, specs_moe[k]).shard(v)
+                            for k, v in layer.items()}
+                x_sh = NamedSharding(mesh, P("data", None, None)).shard(x)
+                want, want_aux = moe_block(x, layer, moe_cfg)
+                got, got_aux = moe_block(x_sh, layer_sh, moe_cfg, mesh)
+                moe_equal = (torch.equal(got.to_local(), want)
+                             and float(got_aux) == float(want_aux))
+                moe_err = float((got.to_local().float() - want.float()).abs().max())
+                moe_plain_ms = _stream_ms(lambda: moe_block(x, layer, moe_cfg))
+                moe_mesh_ms = _stream_ms(lambda: moe_block(x_sh, layer_sh, moe_cfg, mesh))
+            finally:
+                torch.use_deterministic_algorithms(False)
+        del layer, layer_sh, x, x_sh, want, got
+
+        pod_mesh = make_debug_mesh(1, 1, pods=1, device="cuda")
+        grads = pytree.tree_map(lambda t: t.to(torch.float32), state.params)
+        seen, real = [], dist.all_reduce
+
+        def spy(tensor, *a, **kw):
+            seen.append(tensor.dtype)
+            return real(tensor, *a, **kw)
+
+        dist.all_reduce = spy
+        try:
+            synced, cstate = compressed_psum(grads, init_compression_state(grads), pod_mesh)
+            comp_ms = _stream_ms(lambda: compressed_psum(
+                grads, init_compression_state(grads), pod_mesh))
+        finally:
+            dist.all_reduce = real
+        # Each value within half its row's step (plus the rounding of
+        # code x scale, an ulp of the value), and the residual g - synced.
+        within, residual = True, True
+        for g_, s_, e_ in zip(pytree.leaves(grads), pytree.leaves(synced),
+                              pytree.leaves(cstate.error)):
+            rows = g_.reshape(g_.shape[0], -1) if g_.ndim > 1 else g_.reshape(1, -1)
+            half = (rows.abs().amax(dim=-1, keepdim=True) / 127.0 + 1e-12) / 2
+            err = (s_ - g_).reshape(rows.shape).abs()
+            within &= bool((err <= half + rows.abs() * 2.0**-23).all())
+            residual &= torch.equal(e_, g_ - s_)
+        comp_ok = within and residual
+        comp_int = bool(seen) and all(d == torch.int32 for d in seen)
+        del grads, synced, cstate, state, sharded
+        torch.cuda.empty_cache()
+
+        print(f"mesh (1, 1) over NCCL: smollm-360m train state {n_bytes / 2**30:.2f} GiB "
+              f"in {len(pytree.leaves(sh))} DTensor leaves, specs {specs}")
+        print(f"  one train step, batch 8 x seq 256, from the same state: sharded == plain "
+              f"bitwise {step_equal} (loss {float(m_mesh['loss']):.6f}, equal "
+              f"{loss_equal}); "
+              f"host ms {mesh_ms[0]:.2f} (plain {plain_ms[0]:.2f}), stream ms "
+              f"{mesh_ms[1]:.2f} (plain {plain_ms[1]:.2f})")
+        print(f"  olmoe-1b-7b moe_block(mesh=) at full width (64 experts, top 8, "
+              f"batch 2 x 256, "
+              f"{moe_cfg.dtype}): == moe_block(None) bitwise {moe_equal} (max abs err "
+              f"{moe_err:.3g}); host ms {moe_mesh_ms[0]:.2f} (plain "
+              f"{moe_plain_ms[0]:.2f}), "
+              f"stream ms {moe_mesh_ms[1]:.2f} (plain {moe_plain_ms[1]:.2f})")
+        print(f"  compressed_psum over a pod of 1, smollm's params as float32 grads: "
+              f"within "
+              f"half a step of each row's scale {within}, residual exact {residual}; "
+              f"payload dtypes {sorted({str(d) for d in seen})}; host ms {comp_ms[0]:.2f}, "
+              f"stream ms {comp_ms[1]:.2f}")
+        if not (step_equal and loss_equal and moe_equal and comp_ok and comp_int):
+            raise AssertionError(f"mesh phase: step {step_equal}/{loss_equal}, moe "
+                                 f"{moe_equal}, compressed_psum {within}/{residual}/"
+                                 f"{comp_int}")
+
+        # ---- the launcher, with a failure and without ---------------------
+        timed: dict[str, list[float]] = {"save": [], "wait": [], "restore_latest": []}
+        originals = {n: getattr(CheckpointManager, n) for n in timed}
+
+        def clocked(name):
+            def call(self, *a, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return originals[name](self, *a, **kw)
+                finally:
+                    timed[name].append((time.perf_counter() - t0) * 1e3)
+            return call
+
+        root = Path(__file__).resolve().parent / "build"
+        runs = {}
+        for name, extra in (("failed", ["--inject-failure", str(MESH_FAIL_AT)]),
+                            ("plain", [])):
+            ckpt = root / f"chip_smoke_launch_{name}"
+            shutil.rmtree(ckpt, ignore_errors=True)
+            for n in timed:
+                setattr(CheckpointManager, n, clocked(n))
+            res: dict = {}
+            try:
+                t0 = time.perf_counter()
+                lines = _printed(lambda: res.update(launch_train.main(
+                    ["--steps", str(MESH_STEPS), "--ckpt-dir", str(ckpt), *extra])) or 0)
+                wall = time.perf_counter() - t0
+            finally:
+                for n, f in originals.items():
+                    setattr(CheckpointManager, n, f)
+            runs[name] = dict(lines=lines, wall=wall, state=res["state"],
+                              restarts=res["runner"].restarts,
+                              steps=[e["step"] for e in res["logs"]],
+                              timed={k: list(v) for k, v in timed.items()})
+            for v in timed.values():
+                v.clear()
+            shutil.rmtree(ckpt, ignore_errors=True)
+        fin_equal = _trees_equal(gather_tree(runs["failed"]["state"]),
+                                 gather_tree(runs["plain"]["state"]))
+        print(f"  repro_torch.launch.train at its defaults, {MESH_STEPS} steps:")
+        for name, r in runs.items():
+            t = r["timed"]
+            print(f"    {name}: {r['lines'][-1]!r} in {r['wall']:.1f} s; steps run "
+                  f"{len(r['steps'])}; checkpoint host ms: save (caller's thread) "
+                  f"{[round(x, 1) for x in t['save']]}, wait "
+                  f"{[round(x, 1) for x in t['wait']]}, restore "
+                  f"{[round(x, 1) for x in t['restore_latest']]}")
+        print(f"  the run with a failure at step {MESH_FAIL_AT} ends on the uninterrupted "
+              f"run's state, bitwise: {fin_equal}")
+        for r in runs.values():
+            del r["state"]
+        failed = runs["failed"]
+        if not (fin_equal and failed["restarts"] == 1
+                and failed["lines"][-1].endswith("restarts=1")
+                and runs["plain"]["restarts"] == 0):
+            raise AssertionError(f"launcher: final states equal {fin_equal}, restarts "
+                                 f"{failed['restarts']} / {runs['plain']['restarts']}")
+    finally:
+        if started:
+            dist.destroy_process_group()
+    launched = kernels.launches_since(launches0)
+    wall = time.perf_counter() - t_phase
+    print(f"  phase wall time {wall:.1f} s ({smi}); the port's kernels launched in this "
+          f"phase: {launched or 'none'}")
+    if launched:
+        raise AssertionError(f"the training path launched kernels: {launched}")
+    return dict(runs=runs, wall=wall)
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=4,
@@ -2626,6 +2875,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     stamp("families phase")
     fams = phase_families(gen)
+    torch.cuda.empty_cache()
+    stamp("mesh training phase")
+    phase_mesh(smi)
     stamp("done")
 
     main_fwht, main_wv = k[("fwht", 32)], k[("wv_step", 32, True)]

@@ -12,6 +12,14 @@ reference stores them.  So either package restores what the other wrote.
 `CheckpointManager.save(..., blocking=False)` copies the tree to host
 memory on the caller's thread (the point that must be consistent with
 the step) and writes it on a background thread.
+
+A sharded tree (DTensor leaves, one block per rank) is saved whole: every
+rank gathers the full arrays on the caller's thread, before any write
+starts, rank 0 writes them, and every rank waits at a barrier for that
+write when the manager next waits (before a restore or the next save).
+`restore_checkpoint(..., sharding_tree=)` cuts each rank's block of the
+full arrays on the mesh the sharding tree names, which may differ in
+shape from the mesh that saved them (elastic restore).
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ import torch
 
 from repro_torch import pytree
 from repro_torch.convert import tensor_to_numpy
+from repro_torch.distributed.sharding import gather, is_dtensor, sharding_leaves
 
 __all__ = ["save_checkpoint", "latest_step", "restore_checkpoint",
            "CheckpointManager"]
@@ -84,12 +93,16 @@ def latest_step(directory: str) -> int | None:
 
 
 def restore_checkpoint(directory: str, step: int | None = None,
-                       template: Any = None, device="cuda") -> tuple[int, Any]:
+                       template: Any = None, device="cuda",
+                       sharding_tree: Any = None) -> tuple[int, Any]:
     """Restore (step, tree), the latest step if `step` is None.
 
     With a template, the tree's structure, leaf order, dtypes and devices
     come from it; otherwise a flat ``{path: tensor}`` dict is returned,
-    each leaf in its manifest dtype on `device`.
+    each leaf in its manifest dtype on `device`.  `sharding_tree` (the
+    template's structure, `NamedSharding` leaves or None) makes each leaf
+    the DTensor of its sharding, on its mesh's device; a template with
+    DTensor leaves needs one.
     """
     if step is None:
         step = latest_step(directory)
@@ -108,12 +121,27 @@ def restore_checkpoint(directory: str, step: int | None = None,
     loaded = {key: load(info) for key, info in manifest["leaves"].items()}
     if template is None:
         return step, {k: v.to(device) for k, v in loaded.items()}
+    if sharding_tree is None and any(is_dtensor(x) for x in pytree.leaves(template)):
+        raise ValueError("the template is sharded: pass its sharding_tree= "
+                         "(distributed.sharding.sharding_of)")
+    named = pytree.leaves_with_path(template)
+    shardings = (sharding_leaves(template, sharding_tree) if sharding_tree is not None
+                 else [None] * len(named))
     leaves = []
-    for key, leaf in pytree.leaves_with_path(template):
+    for (key, leaf), sh in zip(named, shardings):
         if key not in loaded:
             raise KeyError(f"checkpoint missing leaf {key}")
-        leaves.append(loaded[key].to(device=leaf.device, dtype=leaf.dtype))
+        dev = (sh.mesh.device_type if sh is not None
+               else leaf.device_mesh.device_type if is_dtensor(leaf) else leaf.device)
+        x = loaded[key].to(device=dev, dtype=leaf.dtype)
+        leaves.append(sh.shard(x) if sh is not None else x)
     return step, pytree.unflatten(template, leaves)
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_initialized() else 0
 
 
 class CheckpointManager:
@@ -124,23 +152,36 @@ class CheckpointManager:
         self.keep = keep
         self._thread: threading.Thread | None = None
         self._error: BaseException | None = None
+        self._barrier = False     # a sharded save: rank 0's write to wait for
         os.makedirs(directory, exist_ok=True)
 
     def wait(self) -> None:
-        """Join the background save; re-raise what it raised."""
+        """Join the background save; re-raise what it raised.  After a
+        sharded save every rank waits here for rank 0's write."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._barrier:
+            import torch.distributed as dist
+
+            self._barrier = False
+            dist.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err
 
     def save(self, step: int, tree: Any, blocking: bool = True) -> None:
-        # The consistency point: a host copy of every leaf, taken now.
+        # The consistency point: a host copy of every leaf, taken now (a
+        # sharded leaf gathered whole: a collective, so on this thread).
+        sharded = any(is_dtensor(x) for x in pytree.leaves(tree))
         host_tree = pytree.tree_map(
-            lambda x: x.detach().to("cpu", copy=True)
+            lambda x: gather(x).detach().to("cpu", copy=True)
             if isinstance(x, torch.Tensor) else np.array(x), tree)
         self.wait()
+        if sharded:
+            self._barrier = True
+            if _rank() != 0:
+                return
 
         def work():
             save_checkpoint(self.directory, step, host_tree)
@@ -164,7 +205,8 @@ class CheckpointManager:
             shutil.rmtree(os.path.join(self.directory, f"step_{s:08d}"),
                           ignore_errors=True)
 
-    def restore_latest(self, template: Any = None, device="cuda"):
+    def restore_latest(self, template: Any = None, device="cuda",
+                       sharding_tree: Any = None):
         self.wait()
         return restore_checkpoint(self.directory, None, template=template,
-                                  device=device)
+                                  device=device, sharding_tree=sharding_tree)

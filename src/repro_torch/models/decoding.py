@@ -38,7 +38,6 @@ from .transformer import (
     _hymba_layers,
     _hymba_mix,
     _hymba_window,
-    _no_mesh,
     _project_qkv,
     embed_inputs,
     forward,
@@ -47,6 +46,13 @@ from .transformer import (
 
 __all__ = ["init_cache", "prefill", "prefill_chunk", "decode_step",
            "write_cache_slot"]
+
+
+def _no_mesh(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= for prefill / decode is the serving half of ROADMAP.md A5, "
+            "not ported yet (training takes a mesh: training.make_train_step)")
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,

@@ -25,6 +25,7 @@ from typing import Any, NamedTuple
 import torch
 import torch.nn.functional as F
 
+from .act_sharding import constrain
 from .config import ModelConfig
 from .layers import dense_init, matmul, slice_layer
 
@@ -112,9 +113,7 @@ def _wkv_chunk(s_carry, rc, kc, vc, lw, u):
 def time_mix(x: torch.Tensor, p: dict, li: int, cfg: ModelConfig, state: RWKVState,
              mesh=None) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (y, new_wkv, new_shift); x: (B, S, D), `p` the stacked
-    layer tree, `li` the layer."""
-    if mesh is not None:
-        raise NotImplementedError("mesh= is not ported (ROADMAP.md A5)")
+    layer tree, `li` the layer.  On a mesh, x is this rank's rows."""
     b, s, d = x.shape
     hd = cfg.head_dim
     h = d // hd
@@ -127,7 +126,8 @@ def time_mix(x: torch.Tensor, p: dict, li: int, cfg: ModelConfig, state: RWKVSta
     def proj(name, w):
         return matmul(mixed(name), slice_layer(p[w], li)).reshape(b, s, h, hd)
 
-    r, k, v = proj("r", "w_r"), proj("k", "w_k"), proj("v", "w_v")
+    r, k, v = (constrain(proj(n, w), mesh, ("batch", None, "model", None))
+               for n, w in (("r", "w_r"), ("k", "w_k"), ("v", "w_v")))
     g = F.silu(matmul(mixed("g"), slice_layer(p["w_g"], li)).to(_F32))
     logw = _decay_logw(mixed("w"), p, li).reshape(b, s, h, hd)
     u = slice_layer(p["bonus_u"], li).to(_F32)
@@ -165,13 +165,12 @@ def time_mix(x: torch.Tensor, p: dict, li: int, cfg: ModelConfig, state: RWKVSta
 
 def channel_mix(x: torch.Tensor, p: dict, li: int, cfg: ModelConfig, state: RWKVState,
                 mesh=None) -> tuple[torch.Tensor, torch.Tensor]:
-    """Squared-ReLU channel mix; returns (y, new_shift)."""
-    if mesh is not None:
-        raise NotImplementedError("mesh= is not ported (ROADMAP.md A5)")
+    """Squared-ReLU channel mix; returns (y, new_shift).  On a mesh, x is
+    this rank's rows."""
     xprev = _token_shift(x, state.shift_c)
     mu = slice_layer(p["mix_c"], li)[None, None].to(x.dtype)
     xk = x * mu + xprev * (1.0 - mu)
-    k = matmul(xk, slice_layer(p["cm_k"], li))
+    k = constrain(matmul(xk, slice_layer(p["cm_k"], li)), mesh, ("batch", None, "model"))
     k = torch.square(torch.relu(k.to(_F32))).to(x.dtype)
     r = torch.sigmoid(matmul(xk, slice_layer(p["cm_r"], li)).to(_F32))
     out = r * matmul(k, slice_layer(p["cm_v"], li)).to(_F32)

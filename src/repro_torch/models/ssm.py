@@ -24,6 +24,7 @@ from typing import Any, NamedTuple
 import torch
 import torch.nn.functional as F
 
+from .act_sharding import constrain
 from .config import ModelConfig
 from .layers import dense_init, matmul
 
@@ -72,13 +73,12 @@ def _prefix_scan(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.
 def ssm_branch(x: torch.Tensor, pl: dict, cfg: ModelConfig, state: SSMState,
                mesh=None) -> tuple[torch.Tensor, SSMState]:
     """One layer's SSM branch with sliced params (no layer axis).
-    x: (B, S, D) -> (y, new_state); S == 1 is the exact recurrence."""
-    if mesh is not None:
-        raise NotImplementedError("mesh= is not ported (ROADMAP.md A5)")
+    x: (B, S, D) -> (y, new_state); S == 1 is the exact recurrence.  On
+    a mesh, x is this rank's rows."""
     b, s, d = x.shape
     n = cfg.ssm_state
-    xi = matmul(x, pl["in_x"])
-    z = matmul(x, pl["in_z"])
+    xi = constrain(matmul(x, pl["in_x"]), mesh, ("batch", None, "model"))
+    z = constrain(matmul(x, pl["in_z"]), mesh, ("batch", None, "model"))
     bc = matmul(x, pl["w_bc"]).to(_F32)                   # (B, S, 2n)
     b_t, c_t = bc[..., :n], bc[..., n:]
     dt = F.softplus(matmul(x, pl["w_dt"]).to(_F32) + pl["dt_bias"][None, None])

@@ -25,6 +25,18 @@ it in decode, as in the reference (ROADMAP.md C9); so does the VLM's
 missing cross block at ``cross_attn_every == n_layers`` (C10).  `loss_fn` is the
 reference's next-token loss, differentiable by autograd and, on a served
 tree of `CIMWeight` leaves, the in-array eval loss.
+
+On a mesh (`mesh=`, a `DeviceMesh` with axes "data" / "model" and maybe
+"pod") each rank computes its own rows of the batch: DTensor parameters
+are gathered at use (`moe.params_at_use`: whole, expert stacks to the
+rank's own experts), activations are plain tensors holding the rank's
+rows (`constrain` marks the reference's layout points and passes them
+through), and MoE layers run expert-parallel.  A batch of DTensors is
+the global view: `forward` returns DTensor logits laid out over the
+batch axes and `loss_fn` the loss of the whole batch, every rank's
+masked CE sum over the global count of valid tokens plus the mean of
+the per-block aux losses (the reference's value under `shard_map`).  A
+plain batch is the rank's own rows, and the results are those rows'.
 """
 
 from __future__ import annotations
@@ -33,8 +45,12 @@ from typing import Any
 
 import torch
 
+from repro_torch.distributed.collectives import all_reduce_axes, mean_over, reduce_from
+from repro_torch.distributed.sharding import is_dtensor
+
 from . import rwkv6 as rwkv_mod
 from . import ssm as ssm_mod
+from .act_sharding import batch_rows, constrain
 from .attention import chunked_causal_attention, cross_attention
 from .config import ModelConfig
 from .layers import (
@@ -49,17 +65,12 @@ from .layers import (
     swiglu,
     truncated_normal,
 )
-from .moe import init_moe_params, moe_block
+from .moe import init_moe_params, moe_block, params_at_use
 
 __all__ = ["init_params", "slice_layer", "embed_inputs", "output_logits",
            "forward", "loss_fn"]
 
 _F32 = torch.float32
-
-
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("mesh= is not ported (ROADMAP.md A5)")
 
 
 # --------------------------------------------------------------------------
@@ -153,24 +164,32 @@ def _project_qkv(x, pl, cfg: ModelConfig, positions):
     return q, k, v
 
 
-def _ffn(x, pl, cfg: ModelConfig):
+def _ffn(x, pl, cfg: ModelConfig, mesh=None):
     h = rms_norm(x, pl["mlp_norm"], cfg.norm_eps)
     if cfg.is_moe:
-        return moe_block(h, pl["moe"], cfg)
+        return moe_block(h, pl["moe"], cfg, mesh)
     return (swiglu(h, pl["w_gate"], pl["w_up"], pl["w_down"]),
             torch.zeros((), dtype=_F32, device=x.device))
 
 
-def _attn_block_train(x, pl, cfg: ModelConfig, positions, window: int):
+def _res_spec(cfg: ModelConfig) -> tuple:
+    return ("batch", None, "model" if cfg.shard_residual else None)
+
+
+def _attn_block_train(x, pl, cfg: ModelConfig, positions, window: int, mesh=None):
     """One layer over the full sequence; returns (x_out, aux, k, v)."""
+    x = constrain(x, mesh, ("batch", None, None))
     q, k, v = _project_qkv(x, pl, cfg, positions)
+    q = constrain(q, mesh, ("batch", None, "model", None))
+    k = constrain(k, mesh, ("batch", None, "model", None))
+    v = constrain(v, mesh, ("batch", None, "model", None))
     attn = chunked_causal_attention(
         q, k, v, chunk_q=cfg.attn_chunk_q, chunk_kv=cfg.attn_chunk_kv,
         window=window)
     attn = matmul(attn.reshape(*x.shape[:2], cfg.q_dim), pl["wo"])
-    x = x + attn
-    ff, aux = _ffn(x, pl, cfg)
-    return x + ff, aux, k, v
+    x = constrain(x + attn, mesh, ("batch", None, None))
+    ff, aux = _ffn(x, pl, cfg, mesh)
+    return constrain(x + ff, mesh, _res_spec(cfg)), aux, k, v
 
 
 def _gated(x, cl, out):
@@ -250,17 +269,20 @@ def embed_inputs(params, batch: dict, cfg: ModelConfig) -> torch.Tensor:
     return x
 
 
-def output_logits(params, x, cfg: ModelConfig) -> torch.Tensor:
+def output_logits(params, x, cfg: ModelConfig, mesh=None) -> torch.Tensor:
     """Final norm and head: float32 logits (..., V), or (..., C, V) with
     C codebooks.  The untied 2-D `lm_head` goes through `matmul` (an
     analog leaf when served by an executor); the tied head multiplies by
     `tok_embed` in float32."""
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if cfg.n_codebooks > 1:
-        return torch.einsum("bsd,cdv->bscv", h.to(_F32), params["lm_head"].to(_F32))
+        out = torch.einsum("bsd,cdv->bscv", h.to(_F32), params["lm_head"].to(_F32))
+        return constrain(out, mesh, ("batch", None, None, "model"))
     if "lm_head" in params:
-        return matmul(h, params["lm_head"]).to(_F32)
-    return torch.matmul(h.to(_F32), params["tok_embed"].to(_F32).t())
+        out = matmul(h, params["lm_head"]).to(_F32)
+    else:
+        out = torch.matmul(h.to(_F32), params["tok_embed"].to(_F32).t())
+    return constrain(out, mesh, ("batch", None, "model"))
 
 
 # --------------------------------------------------------------------------
@@ -269,22 +291,49 @@ def output_logits(params, x, cfg: ModelConfig) -> torch.Tensor:
 def forward(params, batch: dict, cfg: ModelConfig, mesh=None, *,
             collect_cache: bool = False, pos_offset: int = 0):
     """Full-sequence forward.  batch: tokens (B, S) or embeds (B, S, D),
-    optional cond (B, T, dc).  Returns (logits, aux_loss, caches | None)."""
-    _no_mesh(mesh)
+    optional cond (B, T, dc).  Returns (logits, aux_loss, caches | None).
+
+    On a mesh: the rank's rows (see the module docstring); with a DTensor
+    batch the logits are a DTensor over the batch axes and aux the mean
+    over the row blocks.  Caches on a mesh are the serving half of
+    ROADMAP.md A5."""
+    if mesh is None:
+        return _forward(params, batch, cfg, None, collect_cache, pos_offset)
+    if collect_cache:
+        raise NotImplementedError("forward(mesh=, collect_cache=True): caches on a mesh "
+                                  "are the serving half of ROADMAP.md A5")
+    lb, rows = batch_rows(batch, mesh)
+    logits, aux, _ = _forward(params_at_use(params), lb, cfg, mesh, False, pos_offset)
+    if not any(is_dtensor(v) for v in batch.values()):
+        return logits, aux, None
+    from torch.distributed.tensor import DTensor
+
+    ref = next(v for v in batch.values() if is_dtensor(v))
+    shape = (ref.shape[0],) + tuple(logits.shape[1:])
+    logits = DTensor.from_local(logits, mesh, ref.placements, run_check=False,
+                                shape=torch.Size(shape),
+                                stride=torch.empty(shape, device="meta").stride())
+    return logits, mean_over(aux, mesh, rows), None
+
+
+def _forward(params, batch: dict, cfg: ModelConfig, mesh, collect_cache: bool,
+             pos_offset: int):
+    """The forward over plain tensors: all rows, or a rank's rows."""
     x = embed_inputs(params, batch, cfg)
     s = x.shape[1]
     positions = pos_offset + torch.arange(s, device=x.device)[None, :]
 
     if cfg.block == "rwkv6":
-        return _forward_rwkv(params, x, cfg, collect_cache)
+        return _forward_rwkv(params, x, cfg, mesh, collect_cache)
     cond = batch.get("cond")
     if cfg.block == "hymba":
-        return _forward_hymba(params, x, cfg, positions, collect_cache)
+        return _forward_hymba(params, x, cfg, mesh, positions, collect_cache)
     # Grouped cross-attention only below n_layers: at cross_attn_every >=
     # n_layers this forward runs no cross block, while decode runs one
     # (the reference's paths, ROADMAP.md C10).
     if 0 < cfg.cross_attn_every < cfg.n_layers:
-        return _forward_grouped_cross(params, x, cond, cfg, positions, collect_cache)
+        return _forward_grouped_cross(params, x, cond, cfg, mesh, positions,
+                                      collect_cache)
 
     # Homogeneous stack, with per-layer cross-attention (MusicGen) after
     # each layer's FFN when a conditioning is given.
@@ -294,7 +343,8 @@ def forward(params, batch: dict, cfg: ModelConfig, mesh=None, *,
     ks, vs = [], []
     for idx in range(cfg.n_layers):
         x, aux_i, k, v = _attn_block_train(
-            x, slice_layer(lay, idx), cfg, positions, window=cfg.sliding_window)
+            x, slice_layer(lay, idx), cfg, positions, window=cfg.sliding_window,
+            mesh=mesh)
         if per_layer_cross:
             cl = slice_layer(params["cross_layers"], idx)
             x = _cross_block(x, cl, _cond_kv(cond, cl, cfg), cfg)
@@ -303,28 +353,30 @@ def forward(params, batch: dict, cfg: ModelConfig, mesh=None, *,
             ks.append(k)
             vs.append(v)
     caches = {"k": torch.stack(ks), "v": torch.stack(vs)} if collect_cache else None
-    return output_logits(params, x, cfg), aux / cfg.n_layers, caches
+    return output_logits(params, x, cfg, mesh), aux / cfg.n_layers, caches
 
 
-def _forward_rwkv(params, x, cfg: ModelConfig, collect_cache: bool):
+def _forward_rwkv(params, x, cfg: ModelConfig, mesh, collect_cache: bool):
     lay = params["layers"]
     st0 = rwkv_mod.init_rwkv_state(cfg, x.shape[0], device=x.device)
     states = []
     for idx in range(cfg.n_layers):
-        y, wkv_fin, shift_t = rwkv_mod.time_mix(x, lay, idx, cfg, st0)
+        x = constrain(x, mesh, ("batch", None, None))
+        y, wkv_fin, shift_t = rwkv_mod.time_mix(x, lay, idx, cfg, st0, mesh)
         x = x + y
-        cm, shift_c = rwkv_mod.channel_mix(x, lay, idx, cfg, st0)
-        x = x + cm
+        cm, shift_c = rwkv_mod.channel_mix(x, lay, idx, cfg, st0, mesh)
+        x = constrain(x + cm, mesh, _res_spec(cfg))
         if collect_cache:
             states.append((wkv_fin, shift_t, shift_c))
     caches = None
     if collect_cache:
         caches = {name: torch.stack([st[i] for st in states])
                   for i, name in enumerate(("wkv", "shift_t", "shift_c"))}
-    return output_logits(params, x, cfg), torch.zeros((), dtype=_F32, device=x.device), caches
+    return (output_logits(params, x, cfg, mesh),
+            torch.zeros((), dtype=_F32, device=x.device), caches)
 
 
-def _forward_hymba(params, x, cfg: ModelConfig, positions, collect_cache: bool):
+def _forward_hymba(params, x, cfg: ModelConfig, mesh, positions, collect_cache: bool):
     """Global and SWA layers in order; an SWA layer's cache is cut to its
     last `window` positions."""
     lay, ssm_p = params["layers"], params["ssm"]
@@ -333,14 +385,18 @@ def _forward_hymba(params, x, cfg: ModelConfig, positions, collect_cache: bool):
     st0 = ssm_mod.init_ssm_state(cfg, x.shape[0], device=x.device)
     for li, win in _hymba_layers(cfg):
         pl = slice_layer(lay, li)
+        x = constrain(x, mesh, ("batch", None, None))
         q, k, v = _project_qkv(x, pl, cfg, positions)
+        q = constrain(q, mesh, ("batch", None, "model", None))
+        k = constrain(k, mesh, ("batch", None, "model", None))
+        v = constrain(v, mesh, ("batch", None, "model", None))
         attn = chunked_causal_attention(
             q, k, v, chunk_q=cfg.attn_chunk_q, chunk_kv=cfg.attn_chunk_kv, window=win)
         attn = matmul(attn.reshape(*x.shape[:2], cfg.q_dim), pl["wo"])
-        ssm_out, ssm_fin = ssm_mod.ssm_branch(x, slice_layer(ssm_p, li), cfg, st0)
+        ssm_out, ssm_fin = ssm_mod.ssm_branch(x, slice_layer(ssm_p, li), cfg, st0, mesh)
         x = _hymba_mix(x, attn, ssm_out, params["branch_norm"][li], cfg)
-        ff, aux_i = _ffn(x, pl, cfg)
-        x = x + ff
+        ff, aux_i = _ffn(x, pl, cfg, mesh)
+        x = constrain(x + ff, mesh, _res_spec(cfg))
         aux = aux + aux_i
         if collect_cache:
             kv = (k[:, -win:], v[:, -win:]) if win else (k, v)
@@ -355,10 +411,11 @@ def _forward_hymba(params, x, cfg: ModelConfig, positions, collect_cache: bool):
             "v_swa": torch.stack([v for _, v in kv_swa]),
             "ssm_h": torch.stack(ssm_finals),
         }
-    return output_logits(params, x, cfg), aux / cfg.n_layers, caches
+    return output_logits(params, x, cfg, mesh), aux / cfg.n_layers, caches
 
 
-def _forward_grouped_cross(params, x, cond, cfg: ModelConfig, positions, collect_cache):
+def _forward_grouped_cross(params, x, cond, cfg: ModelConfig, mesh, positions,
+                           collect_cache):
     """VLM: a cross-attention block before each group of self-attention
     layers."""
     n_groups = cfg.num_cross_layers
@@ -371,13 +428,14 @@ def _forward_grouped_cross(params, x, cond, cfg: ModelConfig, positions, collect
         x = _cross_block(x, cl, _cond_kv(cond, cl, cfg), cfg)
         for li in range(gi * per, (gi + 1) * per):
             x, aux_i, k, v = _attn_block_train(
-                x, slice_layer(lay, li), cfg, positions, window=cfg.sliding_window)
+                x, slice_layer(lay, li), cfg, positions, window=cfg.sliding_window,
+                mesh=mesh)
             aux = aux + aux_i
             if collect_cache:
                 ks.append(k)
                 vs.append(v)
     caches = {"k": torch.stack(ks), "v": torch.stack(vs)} if collect_cache else None
-    return output_logits(params, x, cfg), aux / cfg.n_layers, caches
+    return output_logits(params, x, cfg, mesh), aux / cfg.n_layers, caches
 
 
 def loss_fn(params, batch: dict, cfg: ModelConfig, mesh=None):
@@ -385,13 +443,29 @@ def loss_fn(params, batch: dict, cfg: ModelConfig, mesh=None):
 
     batch: tokens (B, S) or embeds, optional cond, targets (B, S) integer
     ((B, S, C) with C codebooks) and mask (B, S) float32.
+
+    On a mesh, every rank returns the same loss of the batch (a DTensor
+    batch) or of its rows (a plain one), and autograd through it gives
+    each rank the gradient of its own rows' share: summed over the
+    batch axes it is the gradient of the whole batch's loss.
     """
-    _no_mesh(mesh)
-    logits, aux, _ = forward(params, batch, cfg)
-    mask = batch["mask"]
+    if mesh is None:
+        logits, aux, _ = _forward(params, batch, cfg, None, False, 0)
+        lb, rows = batch, ()
+    else:
+        lb, rows = batch_rows(batch, mesh)
+        logits, aux, _ = _forward(params_at_use(params), lb, cfg, mesh, False, 0)
+    mask = lb["mask"]
     if cfg.n_codebooks > 1:
         mask = mask[..., None] * torch.ones((1, 1, cfg.n_codebooks), dtype=_F32,
                                             device=mask.device)
-    ce = cross_entropy_loss(logits, batch["targets"], mask)
+    ce = cross_entropy_loss(logits, lb["targets"], mask)
+    if mesh is not None:
+        # This rank's masked CE sum over the whole batch's mask sum (the
+        # clamps are `cross_entropy_loss`'s).
+        n_mine = torch.clamp_min(torch.sum(mask), 1.0)
+        n_all = torch.clamp_min(all_reduce_axes(torch.sum(mask), mesh, rows), 1.0)
+        ce = reduce_from(ce * (n_mine / n_all), mesh, rows)
+        aux = mean_over(aux, mesh, rows)
     loss = ce + cfg.router_aux_coef * aux
     return loss, {"loss": loss, "ce": ce, "router_aux": aux}

@@ -56,9 +56,13 @@ def global_norm(tree: Any) -> torch.Tensor:
 
 @torch.no_grad()
 def adamw_update(grads: Any, state: AdamWState, params: Any, cfg: AdamWConfig,
-                 lr: torch.Tensor) -> tuple[Any, AdamWState, dict[str, torch.Tensor]]:
-    """One AdamW step; returns (new_params, new_state, metrics)."""
-    gnorm = global_norm(grads)
+                 lr: torch.Tensor, gnorm: torch.Tensor | None = None
+                 ) -> tuple[Any, AdamWState, dict[str, torch.Tensor]]:
+    """One AdamW step; returns (new_params, new_state, metrics).  `gnorm`
+    is the global gradient norm to clip by when the trees are one rank's
+    shards of larger ones (default: the norm of `grads`)."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp_max(cfg.grad_clip_norm / (gnorm + 1e-9), 1.0)
     b1, b2 = cfg.betas
     step = state.step + 1

@@ -225,8 +225,8 @@ class ContinuousScheduler:
     ):
         if batch_mesh is not None:
             raise NotImplementedError(
-                "batch_mesh= (data-sharded decode) is not ported yet: "
-                "ROADMAP.md stage 3 item 4")
+                "batch_mesh= (data-sharded decode) is the serving half of "
+                "ROADMAP.md A5, not ported yet")
         self.engine = engine
         self.cfg = cfg = engine.cfg
         self.device = torch.device(device)

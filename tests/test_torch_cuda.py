@@ -41,7 +41,12 @@ and hymba's smoke model deployed on the card and served through
 `acim_vmm_tiled` (7 launches per layer and access, in the forward and in
 `ServeEngine.generate`) against the same forward with the wrapper
 replaced by its plain version (within 1e-5 of the largest logit, ideal
-converters).
+converters).  Training on a mesh: a (1, 1) mesh over NCCL (a world of
+one, torn down after each test); two sharded train steps against the
+plain steps on the CPU (as the train steps above) and on the card
+(bitwise, under deterministic algorithms), and olmoe's smoke MoE block
+expert-parallel on the card against the single-device block on the CPU
+(within 1e-4 of the largest output).
 """
 
 import numpy as np
@@ -583,3 +588,89 @@ def test_hymba_served_on_card_kernel_vs_plain(cuda, monkeypatch):
                         vmm_ref.acim_vmm_tiled(x, gp, gn, bc, adc_bits, full_scale, noise))
     plain, _ = served_logits()
     assert float((kernel - plain).abs().max() / plain.abs().max()) <= 1e-5
+
+
+@pytest.fixture
+def card_mesh(cuda):
+    """A (1, 1) mesh over NCCL, a world of one, torn down after the test."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_distributed, make_debug_mesh
+
+    started = init_distributed("cuda")
+    try:
+        yield make_debug_mesh(1, 1, device="cuda")
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+@pytest.mark.requires_cuda
+def test_sharded_step_on_card_matches_cpu(card_mesh):
+    """Two sharded train steps on a (1, 1) NCCL mesh (state and batch as
+    DTensors) against the plain steps on the CPU (losses within 1e-5,
+    params within 5e-4 where the gradient is not tiny, as
+    `test_train_steps_on_card_match_cpu`), and against the plain steps
+    on the card, bitwise, both under deterministic algorithms."""
+    from repro_torch import pytree
+    from repro_torch.data import SyntheticLM
+    from repro_torch.distributed.sharding import gather_tree, shard_tree
+    from repro_torch.launch.shardings import shard_batch, state_sharding
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.training import _grads_of, init_train_state, make_train_step
+
+    cfg, opt = _tiny_cfg(), AdamWConfig(lr_peak=1e-2)
+    cpu_state = init_train_state(0, cfg, opt, device="cpu")
+    card_state = pytree.tree_map(lambda t: t.to("cuda"), cpu_state)
+    sharded = shard_tree(card_state, state_sharding(card_mesh, card_state, cfg))
+    plain, mesh_step = (make_train_step(cfg, opt, total_steps=20),
+                        make_train_step(cfg, opt, card_mesh, total_steps=20))
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        held = None
+        for i in range(2):
+            bc = SyntheticLM(**_DATA, device="cpu").global_batch_at(i)._asdict()
+            bg = SyntheticLM(**_DATA, device="cuda").global_batch_at(i)._asdict()
+            _, g_cpu = _grads_of(cpu_state.params, bc, cfg)
+            big = [a.abs() > 1e-4 * a.abs().max() for a in pytree.leaves(g_cpu)]
+            held = big if held is None else [h & n for h, n in zip(held, big)]
+            cpu_state, m_cpu = plain(cpu_state, bc)
+            card_state, m_card = plain(card_state, bg)
+            sb = shard_batch(card_mesh, bg, bg["tokens"].shape[0])
+            sharded, m_sh = mesh_step(sharded, sb)
+            assert abs(float(m_sh["loss"]) - float(m_cpu["loss"])) <= 1e-5
+            assert float(m_sh["loss"]) == float(m_card["loss"])
+    finally:
+        torch.use_deterministic_algorithms(False)
+    full = gather_tree(sharded)
+    for a, b in zip(pytree.leaves(card_state), pytree.leaves(full)):
+        assert b.device.type == "cuda" and torch.equal(a, b)
+    for a, b, h in zip(pytree.leaves(cpu_state.params), pytree.leaves(full.params), held):
+        assert float((b.cpu() - a).abs()[h].max()) <= 5e-4
+
+
+@pytest.mark.requires_cuda
+def test_ep_block_on_card_matches_cpu(card_mesh):
+    """olmoe's smoke MoE block, expert-parallel on a (1, 1) NCCL mesh
+    (rows and experts as DTensors), against the single-device block on
+    the CPU: within 1e-4 of the largest output (float32 sums in another
+    order), aux within rtol 1e-5."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed.sharding import P, NamedSharding
+    from repro_torch.models import init_params
+    from repro_torch.models.moe import moe_block
+
+    cfg = get_smoke_config("olmoe-1b-7b")
+    layer = {k: v[0] for k, v in init_params(0, cfg, device="cpu")["layers"]["moe"].items()}
+    x = torch.randn(4, 24, cfg.d_model, generator=torch.Generator().manual_seed(1))
+    want, want_aux = moe_block(x, layer, cfg)
+    specs = {"router": P(), "w_gate": P("model", "data", None),
+             "w_up": P("model", "data", None), "w_down": P("model", None, "data")}
+    sp = {k: NamedSharding(card_mesh, specs[k]).shard(v.to("cuda"))
+          for k, v in layer.items()}
+    xd = NamedSharding(card_mesh, P("data", None, None)).shard(x.to("cuda"))
+    got, aux = moe_block(xd, sp, cfg, card_mesh)
+    got = got.to_local()
+    assert got.device.type == "cuda"
+    assert float((got.cpu() - want).abs().max() / want.abs().max()) <= 1e-4
+    assert abs(float(aux) - float(want_aux)) <= 1e-5 * abs(float(want_aux))

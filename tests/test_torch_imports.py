@@ -76,11 +76,26 @@ FAMILY_SLICE_MODULES = (
 )
 
 
+# The modules of the mesh-training slice (meshes and sharding rules, the
+# sharded train step's collectives, int8 cross-pod gradients, fault
+# tolerance and the launcher).
+MESH_SLICE_MODULES = (
+    "launch/__init__.py", "launch/mesh.py", "launch/shardings.py", "launch/train.py",
+    "distributed/__init__.py", "distributed/sharding.py", "distributed/collectives.py",
+    "distributed/fault.py", "distributed/straggler.py", "models/act_sharding.py",
+    "optim/compression.py",
+)
+
+
 @pytest.mark.parametrize("rel", SLICE_MODULES + FAULT_SLICE_MODULES + TRAIN_SLICE_MODULES
-                         + FAMILY_SLICE_MODULES)
+                         + FAMILY_SLICE_MODULES + MESH_SLICE_MODULES)
 def test_slice_module_is_checked(rel):
     assert PORT / rel in FILES
 
 
 def test_port_example_is_checked():
     assert ROOT / "examples" / "torch_deploy_rram.py" in FILES
+
+
+def test_train_example_is_checked():
+    assert ROOT / "examples" / "torch_train_lm.py" in FILES

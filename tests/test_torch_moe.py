@@ -8,7 +8,8 @@ Tolerances (besides those of `torch_families`, which every family check
 uses):
 * `moe_block`: outputs within 2e-5 of the largest, aux within rtol 2e-5,
   the drop count (kept (token, choice) pairs) equal, with capacity loose
-  and with capacity binding;
+  and with capacity binding; on a (1, 1) mesh (gloo, a world of one)
+  the expert-parallel block equals the single-device block bitwise;
 * the expert deploy: leaf names, shapes, dtypes, column counts and uids
   exactly; 99% of each leaf's weights within 1e-6 of its scale, all
   within two quantization steps (ROADMAP.md P2: an ulp of a normal draw
@@ -41,6 +42,7 @@ from repro_torch.convert import key_from_numpy, params_from_numpy
 from repro_torch.core import pipeline
 from repro_torch.core.programmer import deploy_arrays
 from repro_torch.core.types import WVConfig
+from repro_torch.distributed.sharding import P, NamedSharding
 from repro_torch.models import forward
 from repro_torch.models.moe import _local_capacity, moe_block, record_routing
 from repro_torch.serving import ContinuousScheduler, Request, ServeEngine
@@ -98,9 +100,16 @@ def test_moe_block_matches_reference(case, carried):
     assert kept == _ref_kept(x.reshape(-1, jcfg.d_model), layer["router"], jcfg)
     total = 3 * 40 * jcfg.moe_top_k
     assert (kept == total) == (case == "loose"), (kept, total)
-    with pytest.raises(NotImplementedError, match="A5"):
-        moe_block(torch.from_numpy(x), params_from_numpy(layer, device="cpu"), tcfg,
-                  mesh=object())
+    # Expert parallelism on a (1, 1) mesh: the global view (rows and
+    # experts as DTensors) is the single-device block, bitwise.
+    with fam.one_rank_mesh() as mesh:
+        tl = params_from_numpy(layer, device="cpu")
+        sp = {k: NamedSharding(mesh, P(*spec)).shard(tl[k]) for k, spec in
+              (("router", ()), ("w_gate", ("model", "data", None)),
+               ("w_up", ("model", "data", None)), ("w_down", ("model", None, "data")))}
+        out, maux = moe_block(NamedSharding(mesh, P("data", None, None)).shard(
+            torch.from_numpy(x)), sp, tcfg, mesh)
+        assert torch.equal(out.to_local(), got) and float(maux) == float(aux)
 
 
 @pytest.mark.parametrize("arch", ARCHS)

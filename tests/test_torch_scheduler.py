@@ -526,7 +526,7 @@ def test_rejects_what_it_does_not_serve(digital):
         _, cfg = _cfgs(**bad)
         with pytest.raises(ValueError, match=match):
             ContinuousScheduler(ServeEngine(cfg, tparams), device="cpu")
-    with pytest.raises(NotImplementedError, match="stage 3 item 4"):
+    with pytest.raises(NotImplementedError, match="serving half of ROADMAP.md A5"):
         ContinuousScheduler(eng, batch_mesh=object(), device="cpu")
     for kw, match in ((dict(prefill_chunk_tokens=12), "power of two"),
                       (dict(prefill_chunk_tokens=8), "attn_chunk_q"),

@@ -7,7 +7,8 @@ block (the JAX package itself runs in the partitionable mode; the port
 keeps the legacy layout, ROADMAP.md C1).  Nothing here changes
 process-wide state beyond a fixture that runs the module on two torch
 threads and restores the count: no global config, default dtype, seed,
-working directory or environment; checkpoints go under `tmp_path`.
+working directory or environment (the one-rank process group of the
+mesh check is torn down when it ends); checkpoints go under `tmp_path`.
 
 Tolerances:
 * `randint`, `SyntheticLM` batches: bitwise;
@@ -41,6 +42,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+import torch_families as fam
 
 from repro.checkpoint import restore_checkpoint as j_restore
 from repro.checkpoint import save_checkpoint as j_save
@@ -76,6 +79,8 @@ from repro_torch.convert import (
 )
 from repro_torch.core import rng as trng
 from repro_torch.data import SyntheticLM
+from repro_torch.distributed.sharding import gather_tree, shard_tree
+from repro_torch.launch.shardings import shard_batch, state_sharding
 from repro_torch.models import ModelConfig
 from repro_torch.models.layers import cross_entropy_loss
 from repro_torch.models.transformer import loss_fn
@@ -251,13 +256,21 @@ def test_loss_fn_matches_on_carried_params(which, tiny_state):
 
 
 def test_loss_fn_rejects_what_is_not_ported(tiny_state):
-    """A mesh is refused (ROADMAP.md A5).  Multi-codebook heads, refused
-    before the model families were ported, now give the reference's loss
-    on carried params: MusicGen's smoke config, (B, S, C) targets."""
+    """A mesh, refused before the training half of ROADMAP.md A5 was
+    ported, now gives the unsharded loss: on a (1, 1) mesh (gloo, a
+    world of one) with params and batch stored as DTensors, bitwise.
+    Multi-codebook heads, refused before the model families were ported,
+    give the reference's loss on carried params: MusicGen's smoke
+    config, (B, S, C) targets."""
     _, tcfg = tiny_cfgs()
     _, tb = _batch(0)
-    with pytest.raises(NotImplementedError):
-        loss_fn(tiny_state[1].params, tb, tcfg, mesh=object())
+    params = tiny_state[1].params
+    want, wm = loss_fn(params, tb, tcfg)
+    with fam.one_rank_mesh() as mesh:
+        sp = shard_tree(params, state_sharding(mesh, params, tcfg))
+        got, gm = loss_fn(sp, shard_batch(mesh, tb, tb["tokens"].shape[0]), tcfg, mesh)
+    assert float(got) == float(want)
+    assert {k: float(v) for k, v in gm.items()} == {k: float(v) for k, v in wm.items()}
     jcfg, mcfg = J_MUSICGEN, MUSICGEN
     with _legacy():
         np_params = jax.tree.map(np.asarray, j_init_params(jax.random.PRNGKey(2), jcfg))
@@ -384,18 +397,35 @@ def test_train_steps_match(grad_accum, tiny_state):
 
 
 def test_train_step_takes_a_schedule_and_refuses_a_mesh(tiny_state):
+    """The schedule is called with the step from 1, single-device and on
+    a (1, 1) mesh (a gloo world of one).  A mesh was refused before the
+    training half of ROADMAP.md A5 was ported; the sharded step now
+    refuses what it cannot shard: a state or a batch not stored as
+    DTensors."""
     _, tcfg = tiny_cfgs()
     _, tb = _batch(0)
     seen = []
-    step = make_train_step(tcfg, AdamWConfig(),
-                           schedule=lambda s: seen.append(int(s)) or torch.tensor(0.0))
+    schedule = lambda s: seen.append(int(s)) or torch.tensor(0.0)  # noqa: E731
+    step = make_train_step(tcfg, AdamWConfig(), schedule=schedule)
     new, m = step(tiny_state[1], tb)
     assert seen == [1] and float(m["lr"]) == 0.0
     # lr 0: only the moments and the step move
     for a, b in zip(pytree.leaves(tiny_state[1].params), pytree.leaves(new.params)):
         assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError):
-        make_train_step(tcfg, AdamWConfig(), mesh=object())
+    rows = tb["tokens"].shape[0]
+    with fam.one_rank_mesh() as mesh:
+        mstep = make_train_step(tcfg, AdamWConfig(), mesh=mesh, schedule=schedule)
+        sharded = shard_tree(tiny_state[1], state_sharding(mesh, tiny_state[1], tcfg))
+        with pytest.raises(TypeError, match="state_sharding"):
+            mstep(tiny_state[1], shard_batch(mesh, tb, rows))
+        with pytest.raises(TypeError, match="shard_batch"):
+            mstep(sharded, tb)
+        new_m, m_m = mstep(sharded, shard_batch(mesh, tb, rows))
+        assert seen == [1, 1] and float(m_m["lr"]) == 0.0
+        # the moments as the plain step's (scatter-adds sum in thread order)
+        for a, b in zip(pytree.leaves(new.opt), pytree.leaves(gather_tree(new_m.opt))):
+            assert torch.allclose(b.float(), a.float(), rtol=0,
+                                  atol=1e-5 * float(a.float().abs().max()))
     with pytest.raises(ValueError):
         make_train_step(tcfg, AdamWConfig(), grad_accum=3)(tiny_state[1], tb)
 

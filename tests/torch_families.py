@@ -26,6 +26,7 @@ Tolerances (float32 configs):
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 
@@ -60,6 +61,22 @@ _TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 def legacy():
     return jax.threefry_partitionable(False)
+
+
+@contextlib.contextmanager
+def one_rank_mesh():
+    """A (1, 1) ("data", "model") mesh over a gloo world of one in this
+    process, torn down on exit (no process group is left behind)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_distributed, make_debug_mesh
+
+    started = init_distributed("cpu")
+    try:
+        yield make_debug_mesh(1, 1, device="cpu")
+    finally:
+        if started:
+            dist.destroy_process_group()
 
 
 @functools.lru_cache(maxsize=None)
