@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py [--layers 4] [--train-layers 2]
+    python3 chip_smoke.py [--layers 3] [--train-layers 2]
 
 Run from the repository root on a machine with an NVIDIA H100 and the
 CUDA toolkit.  Phases, each of which fails the run:
@@ -41,7 +41,7 @@ CUDA toolkit.  Phases, each of which fails the run:
    digital forward on the same arrays (logits, and greedy tokens over 8
    decode steps), then with `examples/serve_lm.py`'s defaults (batch 4,
    prompt 32, 32 new tokens, DAC 6 / ADC 10 bits, read noise 0.2 LSB) in
-   bf16: exactly 28 `acim_vmm_tiled` launches (7 analog leaves x 4
+   bf16: exactly 21 `acim_vmm_tiled` launches (7 analog leaves x 3
    layers) per prefill and per decode step, tokens in the vocabulary,
    logits finite; then the parts of one decode step (noise draws, DAC
    streams, the kernel beside its byte bound, attention, the rest) timed
@@ -57,7 +57,7 @@ CUDA toolkit.  Phases, each of which fails the run:
    admission.  Each stream must complete every request with tokens in
    the vocabulary, build no step function after warmup, make one host
    sync per decode step (the dispatches run under CUDA sync debugging
-   set to "error"), launch exactly 28 `acim_vmm_tiled` per admission,
+   set to "error"), launch exactly 21 `acim_vmm_tiled` per admission,
    chunk and decode step, and serve ``decode_steps * n_slots +
    prefill_tokens`` tokens; every scrub epoch must launch `fwht`, and
    the run must re-program a column (`wv_step` launches).  Times and
@@ -84,7 +84,7 @@ CUDA toolkit.  Phases, each of which fails the run:
    pass's targets, `acim_vmm_tiled` on a remapped leaf, the fault
    sampler and the spare ranking on the card against the CPU.  The
    remap arm is served (ideal converters against its digital forward;
-   then prefill + 8 noisy decode steps of 28 launches each), scrubbed
+   then prefill + 8 noisy decode steps of 21 launches each), scrubbed
    for two epochs (no inactive row flagged or re-programmed, `wv_step`
    on the re-program), and converter offsets are calibrated over the
    w_down leaf's columns (residual spread under 0.1 of the offsets');
@@ -155,7 +155,20 @@ CUDA toolkit.  Phases, each of which fails the run:
    and ends on the second's state, bitwise.  Step, block and compression
    host / stream ms, checkpoint save / wait / restore host ms and the
    phase's wall time are printed; the phase launches none of the port's
-   kernels (the reference's training reaches no Pallas kernel).
+   kernels (the reference's training reaches no Pallas kernel);
+16. deploy and serve on a device mesh, in phase 15's world of one on a
+   (1, 1) ("data", "model") mesh: qwen3-0.6b at full width, 1 layer,
+   deployed by HARP with `mesh=` and without (conductances, report and
+   health tree bitwise equal, one host sync each, 3 `fwht` and 1
+   `wv_step` per bucket-iteration on the mesh path); served through
+   `CIMExecutor(mesh=)` + `ServeEngine(mesh=)` and the plain pair at
+   `serve_lm`'s analog defaults for `MESH_SERVE_NEW` new tokens (tokens
+   bitwise equal, 7 `acim_vmm_tiled` per access, a decode step's host ms
+   each); `ContinuousScheduler(batch_mesh=)` against a plain scheduler
+   over `MESH_REQUESTS` requests (the same tokens, phase 9's contracts);
+   `repro_torch.launch.program`'s real mode; then `fwht`, `wv_step` and
+   `acim_vmm_tiled` on this path's operands (`mesh_case` in the kernels
+   line, beside each kernel's `launches_mesh`).
 
 The line before the last is a JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -206,6 +219,8 @@ FAMILY_TOL = 0.05                # phase 14: bf16 decode vs forward, of the larg
 HYMBA_LAYERS = 3                 # phase 14: hymba-1.5b's depth for the deploy and serve
 MESH_STEPS = 20                  # phase 15: the launcher's steps
 MESH_FAIL_AT = 15                # phase 15: the launcher's injected failure
+MESH_SERVE_NEW = 8               # phase 16: new tokens of each engine's generate
+MESH_REQUESTS = 4                # phase 16: requests through the batch_mesh scheduler
 
 
 def _nvidia_smi() -> str:
@@ -2783,9 +2798,223 @@ def phase_mesh(smi: str) -> dict:
         raise AssertionError(f"the training path launched kernels: {launched}")
     return dict(runs=runs, wall=wall)
 
+
+def _host_equal(a, b) -> bool:
+    """Two host trees (dicts, lists, numpy arrays, scalars) equal bitwise."""
+    import numpy as np
+
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and sorted(a) == sorted(b)
+                and all(_host_equal(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_host_equal(x, y) for x, y in zip(a, b))
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        a, b = np.asarray(a), np.asarray(b)
+        return a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+    return a == b
+
+
+def phase_mesh_serve(smi: str, gen) -> dict:
+    """Phase 16: deploy and serve on a device mesh, a (1, 1) ("data",
+    "model") mesh over the world of one that phase 15 runs in.
+    qwen3-0.6b at full width, 1 layer, is deployed by HARP with `mesh=`
+    and without: conductances and report (every field and the health
+    tree) bitwise equal, one host sync each, 3 `fwht` and 1 `wv_step`
+    launches per bucket-iteration on the mesh path, and each of the mesh
+    deploy's buckets sliced to its rank's block and its packed g and
+    stats gathered over the mesh (one `all_gather_axes` per bucket).  The deployment is
+    served through `CIMExecutor(mesh=)` + `ServeEngine(mesh=)` and
+    through the plain pair at `serve_lm`'s analog defaults (batch 4,
+    prompt 32, DAC 6 / ADC 10 bits, read noise 0.2 LSB) for
+    `MESH_SERVE_NEW` new tokens: tokens bitwise equal, 7 `acim_vmm_tiled`
+    launches per access, and one decode step's host ms of each.  Then
+    `ContinuousScheduler(batch_mesh=)` and a plain one serve
+    `MESH_REQUESTS` requests on 4 slots through the analog executors:
+    the same tokens, phase 9's contracts (one sync per decode step under
+    CUDA sync debugging, 7 launches per dispatch).  Then
+    `repro_torch.launch.program`'s real mode, and `fwht`, `wv_step` and
+    `acim_vmm_tiled` on the mesh path's own operands (w_down's first fine
+    iteration; the mesh executor's local w_gate tiles at decode)."""
+    import warnings
+
+    import torch
+
+    from repro_torch.cim import CIMConfig, CIMExecutor
+    from repro_torch.configs.qwen3_0_6b import CONFIG
+    from repro_torch.core import WVConfig, WVMethod, pipeline, rng
+    from repro_torch.core.programmer import deploy_arrays
+    from repro_torch.distributed.sharding import local
+    from repro_torch.kernels.acim_vmm import ops as vmm_ops
+    from repro_torch.kernels.fwht import ops as fwht_ops
+    from repro_torch.kernels.wv_step import ops as wv_ops
+    from repro_torch.launch import program
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import init_params
+    from repro_torch.serving import ContinuousScheduler, ServeEngine, poisson_requests
+
+    t_phase = time.perf_counter()
+    mesh = make_debug_mesh(1, 1, device="cuda")
+    cfg = CONFIG.replace(n_layers=1)
+    params = init_params(SEED, cfg, device="cuda")
+    wv = WVConfig(method=WVMethod.HARP)
+    key = rng.PRNGKey(SEED + 1, device="cuda")
+    deploys = {}
+    real_gather, gathers = pipeline.all_gather_axes, []
+
+    def counted_gather(*args, **kw):
+        gathers.append(1)
+        return real_gather(*args, **kw)
+
+    for name, m in (("plain", None), ("mesh", mesh)):
+        torch.cuda.synchronize()
+        fwht_ops.launches = wv_ops.launches = 0
+        gathers.clear()
+        pipeline.all_gather_axes = counted_gather
+        pipeline.reset_counters()
+        t0 = time.perf_counter()
+        # The health tree's per-tile sums are an `index_add`, whose CUDA
+        # atomics sum in arrival order unless deterministic algorithms
+        # are on: two deploys agree bitwise only under them.
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                (model, report), dbg, where = _sync_counted(
+                    lambda: deploy_arrays(key, params, wv, device="cuda", mesh=m))
+            finally:
+                torch.use_deterministic_algorithms(False)
+                pipeline.all_gather_axes = real_gather
+        torch.cuda.synchronize()
+        deploys[name] = dict(model=model, report=report, wall=time.perf_counter() - t0,
+                             syncs=(pipeline.host_sync_count(), dbg, where),
+                             launches={"fwht": fwht_ops.launches,
+                                       "wv_step": wv_ops.launches},
+                             gathers=len(gathers))
+    plain, dm = deploys["plain"], deploys["mesh"]
+    model = dm["model"]
+    g_equal = all(torch.equal(st.g, model.arrays[n].g)
+                  for n, st in plain["model"].arrays.items())
+    fields_p, fields_m = dataclasses.asdict(plain["report"]), dataclasses.asdict(dm["report"])
+    extra_p, extra_m = plain["report"].extra or {}, dm["report"].extra or {}
+    differ = ([k for k in fields_p if fields_p[k] != fields_m[k]]
+              + [f"extra.{k}" for k in sorted(set(extra_p) | set(extra_m))
+                 if not _host_equal(extra_p.get(k), extra_m.get(k))])
+    report_equal = not differ
+    n_buckets = len(pipeline.bucket_sizes(dm["report"].num_columns))
+    per = n_buckets * wv.max_fine_iters
+    print(f"mesh (1, 1) over NCCL: qwen3-0.6b layers=1 deploy by HARP, "
+          f"{dm['report'].num_columns} columns; wall s mesh {dm['wall']:.2f} (plain "
+          f"{plain['wall']:.2f}); g bitwise {g_equal}, report and health tree bitwise "
+          f"{report_equal} {differ or ''}; host syncs mesh {dm['syncs'][:2]} plain {plain['syncs'][:2]} "
+          f"(counted, seen by sync debugging); mesh launches {dm['launches']} "
+          f"({per} bucket-iterations); packed gathers mesh {dm['gathers']} plain "
+          f"{plain['gathers']} ({n_buckets} buckets)")
+    if not (g_equal and report_equal):
+        raise AssertionError(f"mesh deploy: g equal {g_equal}, report equal {report_equal}")
+    for name, d in deploys.items():
+        if d["syncs"][:2] != (1, 1):
+            raise AssertionError(f"{name} deploy: host syncs {d['syncs']}")
+    if (dm["gathers"], plain["gathers"]) != (n_buckets, 0):
+        raise AssertionError(f"packed gathers mesh {dm['gathers']} plain "
+                             f"{plain['gathers']}; the mesh deploy gathers each of its "
+                             f"{n_buckets} buckets once")
+    if dm["launches"] != {"fwht": 3 * per, "wv_step": per}:
+        raise AssertionError(f"mesh deploy launched {dm['launches']}; HARP needs 3 fwht "
+                             f"and 1 wv_step per bucket-iteration ({per})")
+
+    # ---- serve: the engine on the mesh against the plain engine -----------
+    cim = CIMConfig(dac_bits=6, adc_bits=10, sigma_read_lsb=0.2)
+    b, s = 4, 32
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), device="cuda", generator=gen,
+                           dtype=torch.int32)
+    engines = {m_name: ServeEngine(cfg, None, m, executor=CIMExecutor(
+        model, cim, rng.PRNGKey(SEED + 3, device="cuda"), mesh=m))
+        for m_name, m in (("plain", None), ("mesh", mesh))}
+    outs, gen_launches, step_ms = {}, {}, {}
+    for name, eng in engines.items():
+        torch.cuda.synchronize()
+        vmm_ops.launches = vmm_ops.launches_single = 0
+        outs[name] = eng.generate(tokens, max_new=MESH_SERVE_NEW)
+        torch.cuda.synchronize()
+        gen_launches[name] = {"acim_vmm_tiled": vmm_ops.launches,
+                              "acim_vmm": vmm_ops.launches_single}
+        _, cache = eng._prefill(eng.access_params(b * s), eng._rows({"tokens": tokens}))
+        cur = eng._rows({"tokens": tokens[:, -1:]})
+        step_ms[name] = _host_ms(lambda: eng._decode(eng.access_params(b), cache, cur),
+                                 reps=5)
+    tok_equal = torch.equal(outs["plain"], outs["mesh"])
+    want = 7 * cfg.n_layers * MESH_SERVE_NEW
+    print(f"  served (DAC 6, ADC 10 bits, read noise 0.2 LSB), batch {b}, prompt {s}, "
+          f"{MESH_SERVE_NEW} new tokens: tokens bitwise {tok_equal}; acim_vmm_tiled "
+          f"launches mesh {gen_launches['mesh']['acim_vmm_tiled']} plain "
+          f"{gen_launches['plain']['acim_vmm_tiled']} (want {want}); decode step host ms "
+          f"mesh {step_ms['mesh']:.2f} (plain {step_ms['plain']:.2f})")
+    if not tok_equal or any(v["acim_vmm_tiled"] != want for v in gen_launches.values()):
+        raise AssertionError(f"mesh serve: tokens equal {tok_equal}, launches {gen_launches}")
+
+    # ---- continuous batching with batch_mesh ------------------------------
+    reqs = poisson_requests(SEED, MESH_REQUESTS, rate=0.5, vocab=cfg.vocab_size,
+                            prompt_lens=(16, 32), max_new=(8, 16))
+    runs = {}
+    for name, m in (("plain", None), ("mesh", mesh)):
+        ex = CIMExecutor(model, cim, rng.PRNGKey(7, device="cuda"), mesh=m)
+        sched = ContinuousScheduler(ServeEngine(cfg, None, m, executor=ex), n_slots=4,
+                                    max_len=64, key=rng.PRNGKey(11, device="cuda"),
+                                    batch_mesh=m, device="cuda")
+        sched.warmup(prompt_range=(16, 32))
+        runs[name] = _serve_stream(sched, ex, reqs, cfg.vocab_size, 7 * cfg.n_layers,
+                                   f"batch_mesh {name}")
+        _print_stream(f"scheduler, batch_mesh={'(1, 1)' if m else None}", sched, runs[name])
+    sched_equal = ({r.rid: r.tokens for r in runs["plain"]["recs"]}
+                   == {r.rid: r.tokens for r in runs["mesh"]["recs"]})
+    print(f"  scheduler tokens bitwise equal to the plain run: {sched_equal}")
+    if not sched_equal:
+        raise AssertionError("batch_mesh scheduler: tokens differ from the plain run")
+
+    # ---- the launcher's real mode (a world of one: no mesh) ---------------
+    t0 = time.perf_counter()
+    line = program.main(["--device", "cuda"])
+    prog_wall = time.perf_counter() - t0
+    print(f"  repro_torch.launch.program (printed above) in {prog_wall:.1f} s")
+    if "[bucketed pipeline (" not in line or "1 host sync)]" not in line:
+        raise AssertionError(f"launch.program: {line!r}")
+
+    # ---- the kernels on this path's operands ------------------------------
+    st = model.arrays["['layers']['w_down']"]
+    c = min(C_DEPLOY, int(st.targets.shape[0]))
+    wv_args, p = _first_fine_iteration(key, st, wv, c)
+    kcases = {
+        "wv_step": [dict(_wv_case(wv_args, p),
+                         case=f"mesh deploy, w_down first fine iteration, C={c}")],
+        "fwht": [dict(phase_fwht(wv.n_cells, gen, x=wv_args[2]),
+                      case=f"mesh deploy, w_down first verify's conductances, C={c}")],
+    }
+    w = engines["mesh"].executor._analog["['layers']['w_gate']"].layer(0)
+    w = dataclasses.replace(w, **{f: local(getattr(w, f))
+                                  for f in ("g_pos", "g_neg", "scale", "key", "layer_id")})
+    case = "mesh w_gate decode (the rank's local tiles)"
+    vmm = {case: _vmm_case(w, cim, b, w.n_tiles, False, gen, case)}
+    _print_vmm(w, cim, vmm, "mesh executor w_gate layer 0")
+    for name, rr in kcases.items():
+        r = rr[0]
+        print(f"  {name} on {r['case']}: ms={r['ms']:.4f} ({r['stream_ms']:.4f}) plain_ms="
+              f"{r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
+              f"max_abs_err={r['max_abs_err']:.3g}")
+    launches = dict(dm["launches"])
+    for name in ("acim_vmm_tiled", "acim_vmm"):
+        launches[name] = gen_launches["mesh"][name] + runs["mesh"]["launches"][name]
+    wall = time.perf_counter() - t_phase
+    print(f"  kernel launches on the mesh paths (deploy; generate + scheduler): {launches}; "
+          f"phase wall time {wall:.1f} s ({smi})")
+    del engines, deploys, model, st, wv_args, w
+    torch.cuda.empty_cache()
+    return dict(launches=launches, kcases=kcases, vmm=vmm, wall=wall,
+                deploy_wall=(dm["wall"], plain["wall"]), step_ms=step_ms)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--layers", type=int, default=4,
+    ap.add_argument("--layers", type=int, default=3,
                     help="qwen3-0.6b depth to deploy (28 = the whole model)")
     ap.add_argument("--train-layers", type=int, default=2,
                     help="qwen3-0.6b depth to train and deploy in phase 11")
@@ -2877,7 +3106,20 @@ def main() -> int:
     fams = phase_families(gen)
     torch.cuda.empty_cache()
     stamp("mesh training phase")
-    phase_mesh(smi)
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_distributed
+
+    # Phases 15 and 16 share one world of one over NCCL.
+    started = init_distributed("cuda")
+    try:
+        phase_mesh(smi)
+        torch.cuda.empty_cache()
+        stamp("mesh deploy and serve phase")
+        mserve = phase_mesh_serve(smi, gen)
+    finally:
+        if started:
+            dist.destroy_process_group()
     stamp("done")
 
     main_fwht, main_wv = k[("fwht", 32)], k[("wv_step", 32, True)]
@@ -2931,6 +3173,12 @@ def main() -> int:
             {k: r[k] for k in ("case", "ms", "plain_ms", "bound_ms", "bound_by",
                                "library_ms", "max_abs_err")}
             for r in fams["kcases"][entry["name"]]]
+        # Phase 16: the mesh deploy, and the kernel on its operands.
+        entry["launches_mesh"] = mserve["launches"][entry["name"]]
+        entry["mesh_case"] = [
+            {k: r[k] for k in ("case", "ms", "plain_ms", "bound_ms", "bound_by",
+                               "library_ms", "max_abs_err")}
+            for r in mserve["kcases"][entry["name"]]]
     for name, case, src_line in (("acim_vmm_tiled", "decode", 166),
                                  ("acim_vmm", "one tile", 230)):
         r = vmm[case]
@@ -2954,6 +3202,12 @@ def main() -> int:
             launches_fig10=fig10["launches"][name],
             launches_registry=reg["launches"][name],
             launches_families=fams["launches"][name],
+            launches_mesh=mserve["launches"][name],
+            mesh_case=[dict(case=c, ms=o["ms"], plain_ms=o["plain_ms"],
+                            bound_ms=o["bound_ms"], bound_by=o["bound_by"],
+                            library_ms=o["library_ms"], max_abs_err=o["max_abs_err"],
+                            shape=f"B={o['b']} T={o['tiles']}")
+                       for c, o in mserve["vmm"].items() if tiled],
             families_case=[dict(case=c, ms=o["ms"], plain_ms=o["plain_ms"],
                                 bound_ms=o["bound_ms"], bound_by=o["bound_by"],
                                 library_ms=o["library_ms"], max_abs_err=o["max_abs_err"],

@@ -68,6 +68,10 @@ class CIMExecutor:
         time from `CIMWeight.uid` / `layer_id`.  Default: key 0 on the
         device of the deployed arrays.
       predicate: overrides `analog_eligible`.
+      mesh: optional `DeviceMesh`; tile planes and scales split their
+        output channels over "model" (`launch.shardings.
+        cim_weight_specs`), every built or re-viewed tile included, so
+        each rank reads its own columns of every leaf.
     """
 
     def __init__(
@@ -76,6 +80,7 @@ class CIMExecutor:
         cfg: CIMConfig | None = None,
         key: torch.Tensor | None = None,
         predicate: Callable[[str, Any], bool] | None = None,
+        mesh: Any = None,
     ):
         self.deployed = deployed
         self.cfg = cfg or CIMConfig()
@@ -83,6 +88,7 @@ class CIMExecutor:
             dev = next(iter(deployed.arrays.values())).g.device
             key = rng.PRNGKey(0, device=dev)
         self.key = key
+        self.mesh = mesh
         self.access = 0
         self.tokens_served = 0
         predicate = predicate or analog_eligible
@@ -106,8 +112,14 @@ class CIMExecutor:
         return rng.fold_in(self.key, self.access)
 
     def _tile(self, name: str, state) -> CIMWeight:
-        return build_weight(state, self.cfg, self._access_key(), name=name,
-                            uid=self._uids[name])
+        w = build_weight(state, self.cfg, self._access_key(), name=name,
+                         uid=self._uids[name])
+        if self.mesh is not None:
+            # launch sits above cim: imported only when a mesh is given.
+            from repro_torch.launch.shardings import shard_cim_weight
+
+            w = shard_cim_weight(self.mesh, w)
+        return w
 
     def _refresh_views(self) -> None:
         """Re-view any array whose conductances were swapped."""

@@ -33,6 +33,13 @@ token id), not on its slot or on the batch around it.
 In the ideal limit (``dac_bits=None``, ``adc_bits=None``,
 ``sigma_read_lsb=0``) the pipeline is ``x @ materialize(w)`` in float32
 up to reassociation.
+
+On a mesh (a `CIMWeight` of DTensors, `launch.shardings.
+shard_cim_weight`) each rank runs the kernel on its own block of the
+output columns, with only those columns' read noise drawn
+(`rng.normal_cols`), and the kernel's output blocks are gathered over
+the mesh axes that split them: a concatenation, so the result is
+bitwise the unsharded one.
 """
 
 from __future__ import annotations
@@ -45,6 +52,8 @@ import torch.nn.functional as F
 
 from repro_torch.core import rng
 from repro_torch.core.numerics import true_div
+from repro_torch.distributed.collectives import all_gather_axes, block_of
+from repro_torch.distributed.sharding import is_dtensor, local, split_axes
 from repro_torch.kernels.acim_vmm import ops as vmm_ops
 from repro_torch.readout import noise as ro_noise
 
@@ -183,9 +192,17 @@ def cim_matmul(x: torch.Tensor, w: CIMWeight, *,
             f"CIMWeight {w.name!r}: token_ids shape {tuple(token_ids.shape)} "
             f"does not match the {t} flattened input rows")
 
+    mesh = w.g_pos.device_mesh if is_dtensor(w.g_pos) else None
+    axes = split_axes(w.g_pos, w.g_pos.ndim - 1)     # the ones splitting M
+    g_pos, g_neg, scale = local(w.g_pos), local(w.g_neg), local(w.scale)
+    m_all, cols = w.g_pos.shape[-1], None
+    if axes:
+        blk = block_of(mesh, axes)[0]
+        cols = (blk * g_pos.shape[-1], (blk + 1) * g_pos.shape[-1])
+
     planes, weights = _dac_stream(xf, cfg)        # (P, T, K), (P, T)
     p = planes.shape[0]
-    n_tiles, s, r, m = w.g_pos.shape
+    n_tiles, s, r, m = g_pos.shape
     pad = n_tiles * r - k
     if pad:
         planes = F.pad(planes, (0, pad))
@@ -194,19 +211,25 @@ def cim_matmul(x: torch.Tensor, w: CIMWeight, *,
 
     noise = None
     if cfg.sigma_read_lsb > 0.0:
-        key = w.key
+        key = local(w.key)
         if w.uid is not None:
             key = rng.fold_in(key, w.uid)
         if w.layer_id is not None:
-            key = rng.fold_in(key, w.layer_id)
+            key = rng.fold_in(key, local(w.layer_id))
         noise = ro_noise.sample_token_read_noise(
-            key, t, s, m, cfg.sigma_read_lsb,
-            token_ids=token_ids, tiles=n_tiles, planes=p,
-        )  # (T_tiles, S, P*T, M)
+            key, t, s, m_all, cfg.sigma_read_lsb,
+            token_ids=token_ids, tiles=n_tiles, planes=p, cols=cols,
+        )  # (T_tiles, S, P*T, M of this rank)
     acc = vmm_ops.acim_vmm_tiled(
-        xp.contiguous(), w.g_pos, w.g_neg, bc=w.bc, adc_bits=cfg.adc_bits,
+        xp.contiguous(), g_pos, g_neg, bc=w.bc, adc_bits=cfg.adc_bits,
         full_scale=full_scale, noise=noise,
     )
-    y = torch.einsum("pt,ptm->tm", weights, acc.reshape(p, t, m))
-    y = y * w.scale[None, :]
-    return y.reshape(*lead, m).to(x.dtype)
+    if axes:
+        # The kernel's outputs are gathered (with the scale, in one
+        # collective), not the recombined ones: the plane sum below
+        # rounds alike only on operands of the same shape.
+        both = all_gather_axes(torch.cat([acc, scale[None]]), mesh, axes, dim=1)
+        acc, scale = both[:-1], both[-1]
+    y = torch.einsum("pt,ptm->tm", weights, acc.reshape(p, t, m_all))
+    y = y * scale[None, :]
+    return y.reshape(*lead, m_all).to(x.dtype)

@@ -17,6 +17,9 @@ input, so they add nothing to any partial sum.
 A stacked per-layer leaf (L, d, M) gets a leading L axis on every
 tensor field (tiles, scale, key, layer id); `CIMWeight.layer(idx)`
 slices one layer out, as the forward slices a dense leaf ``a[idx]``.
+Served on a mesh (`launch.shardings.shard_cim_weight`) the fields are
+DTensors, the tiles and the scale split on their output axis M, and a
+sliced layer keeps that layout.
 """
 
 from __future__ import annotations
@@ -92,10 +95,28 @@ class CIMWeight:
         if self.g_pos.ndim != 5:
             raise ValueError(f"CIMWeight {self.name!r} is not a layer stack")
         return dataclasses.replace(
-            self, g_pos=self.g_pos[idx], g_neg=self.g_neg[idx],
-            scale=self.scale[idx], key=self.key[idx],
-            layer_id=self.layer_id[idx],
+            self, g_pos=_index(self.g_pos, idx), g_neg=_index(self.g_neg, idx),
+            scale=_index(self.scale, idx), key=_index(self.key, idx),
+            layer_id=_index(self.layer_id, idx),
         )
+
+
+def _index(x: torch.Tensor, idx: int) -> torch.Tensor:
+    """``x[idx]`` on the leading (layer) axis.  A DTensor (never split on
+    that axis) is indexed in its local block and stays a DTensor with
+    its placements moved down one dim."""
+    from repro_torch.distributed.sharding import is_dtensor
+
+    if not is_dtensor(x):
+        return x[idx]
+    from torch.distributed.tensor import DTensor, Shard
+
+    placements = tuple(Shard(p.dim - 1) if isinstance(p, Shard) else p
+                       for p in x.placements)
+    shape = x.shape[1:]
+    return DTensor.from_local(x.to_local()[idx], x.device_mesh, placements,
+                              run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta").stride())
 
 
 def slice_planes(columns: torch.Tensor,

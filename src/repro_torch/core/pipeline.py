@@ -24,6 +24,11 @@ fault map is sampled per uid, like d2d, and every dispatch programs
 under it; explicit `uids` let the spare-column pass program
 non-contiguous physical columns (`core.remap`).
 
+On a device mesh (`mesh=`, a `DeviceMesh` over an initialised process
+group) each rank programs its block of every bucket's columns and the
+blocks are gathered after the WV loop, so every rank holds the whole,
+bitwise unsharded, deployment.
+
 Telemetry (the reference's): the bucket loop runs in a
 ``deploy.program_columns`` span, and each dispatch's real column count
 goes to the ``pipeline.bucket_columns`` digest (host ints).  The
@@ -46,6 +51,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import obs
+from repro_torch.distributed.collectives import all_gather_axes, block_of
 from repro_torch.obs import metrics as obs_metrics
 
 from . import device as dev_mod
@@ -122,18 +128,32 @@ def bucket_sizes(
     return sizes
 
 
-def get_program_fn(cfg: WVConfig, cost: CircuitCost, with_fault: bool = False):
+def get_program_fn(cfg: WVConfig, cost: CircuitCost, mesh=None,
+                   mesh_axes: tuple | None = None, with_fault: bool = False):
     """The shared batched-programming entry: (key, targets, d2d, col_ids).
 
     Returns ``fn(key, (C, N) targets, (C, N) d2d, (C,) col_ids) ->
-    (g, WVStats)``, cached per (cfg, cost, with_fault).  With
-    `with_fault=True` the entry takes a trailing `device.FaultMap` of
-    (C, N) fields and programs under it; it has its own cache entry, so
-    the fault-free dispatches are counted apart.
+    (g, WVStats)``, cached per (cfg, cost, mesh, mesh_axes, with_fault).
+    With `with_fault=True` the entry takes a trailing `device.FaultMap`
+    of (C, N) fields and programs under it; it has its own cache entry,
+    so the fault-free dispatches are counted apart.
+
+    With a `mesh` the column axis is split over `mesh_axes` (default:
+    every axis of the mesh, the first the major one): each rank programs
+    its block of the C columns, ranks along an axis left out of
+    `mesh_axes` repeat that block's work (the reference's ``P(axes,
+    None)`` layout), and a C that the blocks do not divide is programmed
+    whole on every rank.  No rank talks to another inside the WV loop: a
+    column's trajectory depends only on ``fold_in(key, uid)``.  Then g
+    and the stats, packed into one (C, N + 9) buffer, are gathered
+    across the ranks (one `all_gather` per axis, no host sync), so every
+    rank returns the whole bucket, bitwise what one device computes.
     """
-    cache_key = (cfg, cost, with_fault)
+    cache_key = (cfg, cost, mesh, mesh_axes, with_fault)
     entry = _FN_CACHE.get(cache_key)
     if entry is None:
+        axes = (tuple(mesh_axes) if mesh_axes is not None
+                else tuple(mesh.mesh_dim_names) if mesh is not None else ())
 
         def entry(key, targets, d2d, col_ids, *fault):
             assert len(fault) == int(with_fault), (len(fault), with_fault)
@@ -141,10 +161,21 @@ def get_program_fn(cfg: WVConfig, cost: CircuitCost, with_fault: bool = False):
             if tk not in _TRACED:
                 _TRACED.add(tk)
                 obs_metrics.inc(COMPILE_COUNTER)
-            return program_columns(
-                key, targets, cfg, cost=cost, d2d=d2d, col_ids=col_ids,
-                fault=fault[0] if fault else None,
-            )
+            fm = fault[0] if fault else None
+            c = int(targets.shape[0])
+            blk, n_blk = block_of(mesh, axes) if axes else (0, 1)
+            if not axes or c % n_blk:
+                return program_columns(key, targets, cfg, cost=cost, d2d=d2d,
+                                       col_ids=col_ids, fault=fm)
+            lo, hi = blk * c // n_blk, (blk + 1) * c // n_blk
+            g, st = program_columns(
+                key, targets[lo:hi], cfg, cost=cost, d2d=d2d[lo:hi],
+                col_ids=col_ids[lo:hi],
+                fault=fm.map(lambda x: x[lo:hi]) if fm is not None else None)
+            n = g.shape[1]
+            packed = all_gather_axes(
+                torch.cat([g, torch.stack(tuple(st), dim=1)], dim=1), mesh, axes)
+            return packed[:, :n], WVStats(*packed[:, n:].unbind(dim=1))
 
         _FN_CACHE[cache_key] = entry
     return entry
@@ -202,6 +233,8 @@ def program_packed_columns(
     cfg: WVConfig,
     cost: CircuitCost | None = None,
     *,
+    mesh=None,
+    mesh_axes: tuple | None = None,
     min_bucket: int = DEFAULT_MIN_BUCKET,
     max_bucket: int = DEFAULT_MAX_BUCKET,
     uid_base: int = 0,
@@ -216,6 +249,9 @@ def program_packed_columns(
       key: master key (column sub-streams derive from it).
       blocks: list of (C_i, N) target-level tensors (e.g. one per leaf).
       cfg / cost: WV configuration and circuit constants.
+      mesh / mesh_axes: optional device mesh whose ranks split each
+        bucket's columns (`get_program_fn`); every rank returns the
+        whole deployment.
       min_bucket / max_bucket: power-of-two bucket bounds.
       uid_base: first column uid (block b's column j gets uid
         ``uid_base + sum(C_<b) + j``).  Filler uids for bucket padding
@@ -259,7 +295,7 @@ def program_packed_columns(
     fault = (sample_fault_for(key, uids, (c_total, n), fault_cfg, cfg.device)
              if with_fault else None)
 
-    fn = get_program_fn(cfg, cost, with_fault=with_fault)
+    fn = get_program_fn(cfg, cost, mesh, mesh_axes, with_fault)
     sizes_plan = bucket_sizes(c_total, min_bucket, max_bucket)
     g_parts, stat_parts = [], []
     off = 0

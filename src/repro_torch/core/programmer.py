@@ -430,6 +430,7 @@ def deploy_arrays(
     deploy_embeddings: bool = False,
     predicate: Callable[[str, torch.Tensor], bool] | None = None,
     batched: bool = True,
+    mesh: Any | None = None,
     min_bucket: int = pipeline.DEFAULT_MIN_BUCKET,
     max_bucket: int = pipeline.DEFAULT_MAX_BUCKET,
     fault_cfg: FaultConfig | None = None,
@@ -443,7 +444,11 @@ def deploy_arrays(
     routes ALL leaves' packed columns through the bucketed pipeline with
     one host sync for the report; `batched=False` programs leaf by leaf.
     Both paths draw per-column sub-streams, so they are bit-identical.
-    Leaves are moved to `device` first.
+    Leaves are moved to `device` first.  With a `mesh` (a `DeviceMesh`)
+    the batched path splits every bucket's columns over all of its axes
+    (`pipeline.get_program_fn`) and gathers them back: the
+    `DeployedModel` and the report on every rank are the unsharded ones,
+    and the report still makes one host fetch.
 
     Faulty silicon (DESIGN.md Sec. 15, batched path only): `fault_cfg`
     samples a per-cell `FaultMap` (kept in each `ArrayState`) and
@@ -481,7 +486,7 @@ def deploy_arrays(
         if batched and not use_remap:
             g_blocks, stats_blocks, d2d_blocks, fault_blocks = (
                 pipeline.program_packed_columns(
-                    key, [p.cols for p in plans], wv_cfg, cost,
+                    key, [p.cols for p in plans], wv_cfg, cost, mesh=mesh,
                     min_bucket=min_bucket, max_bucket=max_bucket, fault_cfg=fc,
                 ))
             for plan, g, d2d, fb in zip(plans, g_blocks, d2d_blocks, fault_blocks):
@@ -494,7 +499,7 @@ def deploy_arrays(
         elif batched:
             arrays, report = _deploy_with_spares(
                 key, plans, wv_cfg, cost, fc, remap_cfg, sensitivity,
-                min_bucket, max_bucket, cpt)
+                min_bucket, max_bucket, cpt, mesh)
         else:
             report = DeployReport()
             for plan in plans:
@@ -556,7 +561,7 @@ def _account(report: DeployReport, wv_cfg: WVConfig, cost: CircuitCost) -> None:
 def _deploy_with_spares(key, plans: list[_LeafPlan], wv_cfg: WVConfig,
                         cost: CircuitCost, fault_cfg: FaultConfig | None,
                         remap_cfg: remap_mod.RemapConfig, sensitivity,
-                        min_bucket: int, max_bucket: int, cpt: int
+                        min_bucket: int, max_bucket: int, cpt: int, mesh=None
                         ) -> tuple[dict[str, ArrayState], DeployReport]:
     """The two-pass spare-column deploy (DESIGN.md Sec. 15).
 
@@ -584,7 +589,7 @@ def _deploy_with_spares(key, plans: list[_LeafPlan], wv_cfg: WVConfig,
         uid_end = base
     prim_uids = np.concatenate([ua[:c] for ua, c in zip(uid_arrays, c_counts)])
     spare_uids = np.concatenate([ua[c:] for ua, c in zip(uid_arrays, c_counts)])
-    buckets = dict(min_bucket=min_bucket, max_bucket=max_bucket,
+    buckets = dict(mesh=mesh, min_bucket=min_bucket, max_bucket=max_bucket,
                    pad_uid_base=uid_end, fault_cfg=fault_cfg)
     g_blocks, stats_blocks, d2d_blocks, fault_blocks = pipeline.program_packed_columns(
         key, [p.cols for p in plans], wv_cfg, cost, uids=prim_uids, **buckets)
@@ -637,12 +642,14 @@ def deploy_params(
     deploy_embeddings: bool = False,
     predicate: Callable[[str, torch.Tensor], bool] | None = None,
     batched: bool = True,
+    mesh: Any | None = None,
     device="cuda",
 ) -> tuple[Any, DeployReport]:
-    """Program every eligible leaf and collapse the arrays to dense weights."""
+    """Program every eligible leaf and collapse the arrays to dense weights
+    (`mesh` as in `deploy_arrays`)."""
     deployed, report = deploy_arrays(
         key, params, wv_cfg, q_cfg, cost,
         deploy_embeddings=deploy_embeddings, predicate=predicate,
-        batched=batched, device=device,
+        batched=batched, mesh=mesh, device=device,
     )
     return deployed.materialize(), report

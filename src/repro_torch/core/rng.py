@@ -19,7 +19,10 @@ arithmetic is emulated in int64 with ``& 0xFFFFFFFF``.
 
 `normal` is ``sqrt(2) * erfinv(u)`` with XLA's float32 erf_inv (Giles'
 polynomial), not `torch.erfinv`, which rounds differently in most of
-the range.
+the range.  `normal_cols` draws only a column range of the last axis,
+each value bitwise the whole draw's: in the legacy layout word e pairs
+counter e with e + n/2, so a range of columns is not a run of counters
+and is hashed pair by pair.
 """
 
 from __future__ import annotations
@@ -28,8 +31,8 @@ import numpy as np
 import torch
 
 __all__ = ["PRNGKey", "batch_ndim", "fold_col_keys", "split", "fold_in",
-           "random_bits", "uniform", "normal", "erfinv_f32", "categorical",
-           "randint"]
+           "random_bits", "uniform", "normal", "normal_cols", "erfinv_f32",
+           "categorical", "randint"]
 
 _MASK = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -79,6 +82,21 @@ def _hash_counts(key: torch.Tensor, n: int) -> torch.Tensor:
     k2 = key[..., 1:2]
     o0, o1 = _threefry2x32(k1, k2, counts[:half], counts[half:])
     return torch.cat([o0, o1], dim=-1)[..., :n]
+
+
+def _hash_counts_at(key: torch.Tensor, n: int, idx: torch.Tensor) -> torch.Tensor:
+    """Words `idx` ((k,) int64) of ``_hash_counts(key, n)``: (..., 2) ->
+    (..., k).  Word e < half is the first output of the pair (e, half +
+    e), word e >= half the second output of (e - half, e); an odd n's
+    last counter is 0."""
+    half = (n + 1) // 2
+    second = idx >= half
+    c0 = torch.where(second, idx - half, idx)
+    c1 = c0 + half
+    if n % 2:
+        c1 = torch.where(c1 == 2 * half - 1, torch.zeros_like(c1), c1)
+    o0, o1 = _threefry2x32(key[..., 0:1], key[..., 1:2], c0, c1)
+    return torch.where(second, o1, o0)
 
 
 def split(key: torch.Tensor, num: int = 2) -> tuple[torch.Tensor, ...]:
@@ -143,11 +161,14 @@ def randint(key: torch.Tensor, shape, minval: int, maxval: int) -> torch.Tensor:
     return torch.where(out >= 2**31, out - 2**32, out).to(torch.int32)
 
 
-def _unit_floats(key: torch.Tensor, shape) -> torch.Tensor:
+def _floats_of(bits: torch.Tensor) -> torch.Tensor:
     """Floats in [0, 1) from the top 23 bits (the reference's mantissa trick)."""
-    bits = random_bits(key, shape)
     f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
     return f - 1.0
+
+
+def _unit_floats(key: torch.Tensor, shape) -> torch.Tensor:
+    return _floats_of(random_bits(key, shape))
 
 
 def uniform(key: torch.Tensor, shape, minval: float = 0.0,
@@ -220,9 +241,28 @@ def normal(key: torch.Tensor, shape) -> torch.Tensor:
     batch of C keys, `shape` leads with C and each column draws its
     ``shape[1:]`` tail from its own stream.
     """
-    f = _unit_floats(key, shape)
+    return _normal_of(_unit_floats(key, shape))
+
+
+def _normal_of(f: torch.Tensor) -> torch.Tensor:
     u = torch.clamp_min(f * _NORMAL_SPAN + _NORMAL_LO, _NORMAL_LO)
     return erfinv_f32(u) * _SQRT2
+
+
+def normal_cols(key: torch.Tensor, shape, lo: int, hi: int) -> torch.Tensor:
+    """``normal(key, shape)[..., lo:hi]``, bitwise, hashing only those
+    columns' counter pairs (one hash per value instead of one per two
+    values of the whole draw)."""
+    shape = tuple(int(s) for s in shape)
+    tail = shape[1:] if batch_ndim(key) else shape
+    n = int(np.prod(tail, dtype=np.int64))
+    m = tail[-1]
+    rows = n // m
+    dev = key.device
+    idx = (torch.arange(rows, dtype=torch.int64, device=dev)[:, None] * m
+           + torch.arange(lo, hi, dtype=torch.int64, device=dev)[None, :]).reshape(-1)
+    bits = _hash_counts_at(key, n, idx)
+    return _normal_of(_floats_of(bits)).reshape(*shape[:-1], hi - lo)
 
 
 _TINY = float(np.finfo(np.float32).tiny)

@@ -31,7 +31,8 @@ import torch.distributed as dist
 
 from repro_torch.launch.mesh import axis_sizes
 
-__all__ = ["all_reduce_axes", "reduce_from", "mean_over", "copy_to"]
+__all__ = ["all_reduce_axes", "all_gather_axes", "block_of", "reduce_from", "mean_over",
+           "copy_to"]
 
 
 def all_reduce_axes(x: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
@@ -39,6 +40,31 @@ def all_reduce_axes(x: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
     for a in axes:
         dist.all_reduce(x, group=mesh.get_group(a))
     return x
+
+
+def all_gather_axes(x: torch.Tensor, mesh, axes: Sequence[str], dim: int = 0
+                    ) -> torch.Tensor:
+    """The blocks of `x` that the ranks along `axes` hold, concatenated on
+    `dim` in block order (`axes` major first, as `block_of` numbers
+    them): gathered over the minor axis first.  A concatenation, so
+    every value is the rank's own, bit for bit."""
+    for a in reversed(tuple(axes)):
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(axis_sizes(mesh)[a])]
+        dist.all_gather(parts, x, group=mesh.get_group(a))
+        x = torch.cat(parts, dim=dim)
+    return x
+
+
+def block_of(mesh, axes: Sequence[str]) -> tuple[int, int]:
+    """(this rank's block index, the number of blocks) when a dim is split
+    over `axes`, the first the major one."""
+    sizes = axis_sizes(mesh)
+    idx, n = 0, 1
+    for a in axes:
+        idx = idx * sizes[a] + mesh.get_local_rank(a)
+        n *= sizes[a]
+    return idx, n
 
 
 def _extent(mesh, axes: Sequence[str]) -> int:

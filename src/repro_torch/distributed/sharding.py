@@ -36,7 +36,7 @@ from repro_torch import pytree
 __all__ = ["PartitionSpec", "P", "ShardingRules", "spec_for_path",
            "shard_params_tree", "NamedSharding", "is_dtensor", "local",
            "shard_tree", "sharding_of", "sharding_leaves", "gather", "gather_tree",
-           "local_block"]
+           "local_block", "split_axes"]
 
 
 class PartitionSpec(tuple):
@@ -139,6 +139,17 @@ def is_dtensor(x) -> bool:
 def local(x):
     """This rank's block of a DTensor; a plain tensor as it is."""
     return x.to_local() if is_dtensor(x) else x
+
+
+def split_axes(x, dim: int) -> tuple[str, ...]:
+    """The mesh axes that split `dim` of a DTensor, in mesh order (none
+    for a plain tensor)."""
+    from torch.distributed.tensor import Shard
+
+    if not is_dtensor(x):
+        return ()
+    return tuple(n for n, pl in zip(x.device_mesh.mesh_dim_names, x.placements)
+                 if isinstance(pl, Shard) and pl.dim == dim)
 
 
 def local_block(x: torch.Tensor, mesh, placements,

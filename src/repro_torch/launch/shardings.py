@@ -188,9 +188,13 @@ def cim_weight_specs(mesh, w: Any) -> dict[str, NamedSharding]:
 
 
 def shard_cim_weight(mesh, w: Any) -> Any:
-    raise NotImplementedError(
-        "shard_cim_weight: serving a deployment on a mesh is the serving half of "
-        "ROADMAP.md A5, not ported yet")
+    """A `CIMWeight` whose tensor fields are DTensors laid out as
+    `cim_weight_specs` says (each rank keeps its block; no
+    communication)."""
+    import dataclasses
+
+    specs = cim_weight_specs(mesh, w)
+    return dataclasses.replace(w, **{k: s.shard(getattr(w, k)) for k, s in specs.items()})
 
 
 def state_sharding(mesh, state_tree: Any, cfg: ModelConfig) -> Any:

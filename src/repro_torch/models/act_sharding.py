@@ -11,6 +11,11 @@ a global-view caller gets the reference's layout.
 `constrain(x, mesh, dims)` is a no-op without a mesh.  dims entries:
 "batch" (the largest ("pod", "data") prefix dividing that dim),
 "model" (when its extent divides the dim), or None.
+
+Serving on a mesh, `rows_like` gives a rank's rows back the global view
+of the DTensor they came from, and `row_token_ids` the flattened batch
+indices of those rows, which key an analog leaf's read noise as the
+unsharded forward keys them.
 """
 
 from __future__ import annotations
@@ -19,7 +24,7 @@ import torch
 
 from repro_torch.launch.mesh import axis_sizes
 
-__all__ = ["constrain", "batch_axes_for", "batch_rows"]
+__all__ = ["constrain", "batch_axes_for", "batch_rows", "rows_like", "row_token_ids"]
 
 
 def batch_axes_for(mesh, dim: int):
@@ -73,3 +78,32 @@ def batch_rows(batch: dict, mesh) -> tuple[dict, tuple[str, ...]]:
             raise ValueError(f"batch[{key!r}] rows split over {axes}, others over {rows}")
         rows, out[key] = axes, v.to_local()
     return out, rows or ()
+
+
+def rows_like(x: torch.Tensor, ref, dim: int = 0):
+    """The rank's rows `x` (its block of `ref`'s rows, on `x`'s dim
+    `dim`) as a DTensor whose `dim` is laid out as `ref`'s dim 0."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    placements = tuple(Shard(dim) if isinstance(pl, Shard) and pl.dim == 0 else pl
+                       for pl in ref.placements)
+    shape = list(x.shape)
+    shape[dim] = ref.shape[0]
+    return DTensor.from_local(x, ref.device_mesh, placements, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=torch.empty(shape, device="meta").stride())
+
+
+def row_token_ids(ref, n_rows: int, seq: int):
+    """(n_rows * seq,) int32 flattened batch indices of the rank's rows of
+    `ref` (dim 0 split over mesh axes), or None when the rank holds
+    every row."""
+    from repro_torch.distributed.collectives import block_of
+    from repro_torch.distributed.sharding import split_axes
+
+    axes = split_axes(ref, 0)
+    if not axes:
+        return None
+    first = block_of(ref.device_mesh, axes)[0] * n_rows
+    return torch.arange(first * seq, (first + n_rows) * seq, dtype=torch.int32,
+                        device=ref.to_local().device)

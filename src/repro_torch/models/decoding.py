@@ -18,6 +18,18 @@ reference's scatter semantics: a decode step writes row b's new k/v at
 slot ``pos[b]`` (``pos[b] % W`` in a ring), and a slot outside the cache
 is dropped, not an error.  Updates are functional, as in the reference:
 a step returns a new cache and leaves its input as it was.
+
+On a mesh (`mesh=`, a `DeviceMesh`) each rank computes its own rows, as
+the forward does on a mesh: DTensor parameters are gathered at use and
+MoE layers run expert-parallel.  A batch or cache of DTensors is the
+global view, laid out as `launch.shardings.decode_batch_sharding` lays
+out a decode cache (batch over "data", the sequence axis never split):
+each rank runs its block of rows, and the results come back as DTensors
+of that layout.  A plain batch or cache is the rank's rows.  A cache of
+DTensors is taken as such whether or not `mesh` is given (the
+continuous scheduler's `batch_mesh`): `prefill_chunk` and
+`write_cache_slot` then address a slot by its index in the whole batch,
+and only the rank holding it writes.
 """
 
 from __future__ import annotations
@@ -26,33 +38,68 @@ from typing import Any
 
 import torch
 
+from repro_torch.distributed.collectives import all_gather_axes, block_of
+from repro_torch.distributed.sharding import is_dtensor, local, split_axes
+
 from . import rwkv6 as rwkv_mod
 from . import ssm as ssm_mod
+from .act_sharding import rows_like
 from .attention import chunked_causal_attention, decode_attention
 from .config import ModelConfig
 from .layers import matmul, rms_norm, slice_layer
+from .moe import params_at_use
 from .transformer import (
     _cond_kv,
     _ffn,
+    _forward,
     _gated,
     _hymba_layers,
     _hymba_mix,
     _hymba_window,
     _project_qkv,
     embed_inputs,
-    forward,
     output_logits,
+    row_token_stream,
 )
 
 __all__ = ["init_cache", "prefill", "prefill_chunk", "decode_step",
            "write_cache_slot"]
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= for prefill / decode is the serving half of ROADMAP.md A5, "
-            "not ported yet (training takes a mesh: training.make_train_step)")
+def _first_dtensor(tree: dict):
+    return next((v for v in tree.values() if is_dtensor(v)), None)
+
+
+def _localized(tree: dict) -> dict:
+    return {k: local(v) for k, v in tree.items()}
+
+
+def _batch_axis(name: str) -> int:
+    """The batch axis of a cache leaf: 0 for "pos" (B,), else 1."""
+    return 0 if name == "pos" else 1
+
+
+def _like(new: torch.Tensor, old):
+    """`new` (the rank's block) laid out as the DTensor `old`; a plain
+    `old` leaves `new` plain."""
+    if not is_dtensor(old):
+        return new
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(new, old.device_mesh, old.placements, run_check=False,
+                              shape=old.shape, stride=old.stride())
+
+
+def _slot_owner(leaf, axis: int, slot: int) -> tuple[tuple[str, ...], int, int, bool]:
+    """For global batch row `slot` of a DTensor cache leaf: (the mesh axes
+    splitting the batch axis, the index of the block holding the row,
+    its local index there, whether this rank holds it)."""
+    axes = split_axes(leaf, axis)
+    if not axes:
+        return (), 0, slot, True
+    blk = block_of(leaf.device_mesh, axes)[0]
+    rows = leaf.to_local().shape[axis]
+    return axes, slot // rows, slot % rows, slot // rows == blk
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -110,7 +157,28 @@ def prefill(params, batch: dict, cfg: ModelConfig, mesh=None,
     absorb the padding, and cross-attention caches and multi-codebook
     heads are refused, as the reference refuses them.
     """
-    _no_mesh(mesh)
+    ref = _first_dtensor(batch)
+    if mesh is None and ref is None:
+        return _prefill(params, batch, cfg, None, max_len, true_len)
+    lb = _localized(batch)
+    if ref is not None and true_len is not None:
+        true_len = local(true_len)
+        n = ref.to_local().shape[0]
+        if true_len.shape[0] != n:       # the whole batch's lengths
+            axes = split_axes(ref, 0)
+            first = block_of(ref.device_mesh, axes)[0] * n if axes else 0
+            true_len = true_len[first:first + n]
+    with row_token_stream(ref, lb):
+        last, cache = _prefill(params_at_use(params) if mesh is not None else params,
+                               lb, cfg, mesh, max_len, true_len)
+    if ref is None:
+        return last, cache
+    return rows_like(last, ref), {k: rows_like(v, ref, _batch_axis(k))
+                                  for k, v in cache.items()}
+
+
+def _prefill(params, batch: dict, cfg: ModelConfig, mesh, max_len, true_len):
+    """`prefill` over plain tensors: all rows, or a rank's rows."""
     inputs = batch.get("tokens", batch.get("embeds"))
     b, s = inputs.shape[:2]
     max_len = max_len or s
@@ -125,7 +193,7 @@ def prefill(params, batch: dict, cfg: ModelConfig, mesh=None,
             raise ValueError("padded prefill does not support cross-attention caches")
         if cfg.n_codebooks > 1:
             raise ValueError("padded prefill does not support multi-codebook heads")
-    logits, _aux, kv = forward(params, batch, cfg, collect_cache=True)
+    logits, _aux, kv = _forward(params, batch, cfg, mesh, True, 0)
     if true_len is not None:
         cache["k"][:, :, :s] = kv["k"]
         cache["v"][:, :, :s] = kv["v"]
@@ -185,8 +253,40 @@ def prefill_chunk(params, cache: dict, tokens: torch.Tensor, cfg: ModelConfig,
     cross-attention caches and multi-codebook heads are refused as in
     padded `prefill`.  C and `start` must be multiples of both attention
     chunk sizes.
+
+    A cache of DTensors: every rank runs the chunk on the slot's row,
+    which the rank holding it shares over the batch axes, and only that
+    rank writes the result.
     """
-    _no_mesh(mesh)
+    p = params_at_use(params) if mesh is not None else params
+    if not is_dtensor(cache.get("k")):
+        return _prefill_chunk(p, cache, tokens, cfg, mesh, start, slot, true_len,
+                              park_pos)
+    axes, owner, li, mine = _slot_owner(cache["k"], 1, slot)
+    lc = _localized(cache)
+    row = {}
+    for name in ("k", "v", "pos"):
+        axis = _batch_axis(name)
+        r = lc[name].narrow(axis, li, 1)
+        if axes:
+            r = all_gather_axes(r, cache["k"].device_mesh, axes, dim=axis
+                                ).narrow(axis, owner, 1)
+        row[name] = r
+    last, new_row = _prefill_chunk(p, row, tokens, cfg, mesh, start, 0, true_len,
+                                   park_pos)
+    out = dict(cache)
+    if mine:
+        for name in ("k", "v", "pos"):
+            axis = _batch_axis(name)
+            new = lc[name].clone()
+            new.narrow(axis, li, 1).copy_(new_row[name])
+            out[name] = _like(new, cache[name])
+    return last, out
+
+
+def _prefill_chunk(params, cache: dict, tokens, cfg: ModelConfig, mesh, start: int,
+                   slot: int, true_len, park_pos):
+    """`prefill_chunk` on a plain cache."""
     if cfg.block in ("rwkv6", "hymba"):
         raise ValueError(f"chunked prefill is attention-only; got block={cfg.block}")
     if cfg.is_moe:
@@ -222,7 +322,7 @@ def prefill_chunk(params, cache: dict, tokens: torch.Tensor, cfg: ModelConfig,
             q, kf, vf, chunk_q=cfg.attn_chunk_q, chunk_kv=cfg.attn_chunk_kv,
             window=cfg.sliding_window, pos_offset=start)
         x = x + matmul(attn.reshape(b, c, cfg.q_dim), pl["wo"])
-        ff, _ = _ffn(x, pl, cfg)
+        ff, _ = _ffn(x, pl, cfg, mesh)
         x = x + ff
         ks.append(k)
         vs.append(v)
@@ -240,7 +340,7 @@ def prefill_chunk(params, cache: dict, tokens: torch.Tensor, cfg: ModelConfig,
     new_cache["pos"] = pos
     if true_len is None:
         return None, new_cache
-    logits = output_logits(params, x, cfg)
+    logits = output_logits(params, x, cfg, mesh)
     return logits[:, true_len - 1 - start], new_cache
 
 
@@ -249,12 +349,20 @@ def write_cache_slot(shared: dict, single: dict, slot: int) -> dict:
     `slot` of a pre-allocated decode cache; returns the new cache.
 
     Every leaf carries the batch on axis 1 ((L, B, ...) layouts) except
-    "pos" (B,).
+    "pos" (B,).  In a cache of DTensors only the rank holding the slot
+    writes.
     """
     out = dict(shared)
     for name, dst in shared.items():
-        src = single[name].to(dst.dtype)
-        axis = 0 if name == "pos" else 1
+        src = local(single[name]).to(dst.dtype)
+        axis = _batch_axis(name)
+        if is_dtensor(dst):
+            _, _, li, mine = _slot_owner(dst, axis, int(slot))
+            if mine:
+                new = dst.to_local().clone()
+                new.narrow(axis, li, src.shape[axis]).copy_(src)
+                out[name] = _like(new, dst)
+            continue
         new = dst.clone()
         new.narrow(axis, int(slot), src.shape[axis]).copy_(src)
         out[name] = new
@@ -299,8 +407,24 @@ def _decode_cross(x, cl, ck, cv, cfg):
 
 def decode_step(params, cache: dict, batch: dict, cfg: ModelConfig, mesh=None):
     """One token for the whole batch.  batch: tokens (B, 1) or embeds
-    (B, 1, D).  Returns (logits (B, 1, V) or (B, 1, C, V), new_cache)."""
-    _no_mesh(mesh)
+    (B, 1, D).  Returns (logits (B, 1, V) or (B, 1, C, V), new_cache).
+
+    On a mesh, or with DTensors in `batch` or `cache`, each rank steps
+    its rows (the module docstring): logits come back as DTensors when
+    the batch is one, and each cache leaf in its own layout."""
+    ref = _first_dtensor(batch)
+    if mesh is None and ref is None and _first_dtensor(cache) is None:
+        return _decode_step(params, cache, batch, cfg, None)
+    lb = _localized(batch)
+    with row_token_stream(ref, lb):
+        logits, new = _decode_step(params_at_use(params) if mesh is not None else params,
+                                   _localized(cache), lb, cfg, mesh)
+    new = {k: _like(v, cache[k]) for k, v in new.items()}
+    return (rows_like(logits, ref) if ref is not None else logits), new
+
+
+def _decode_step(params, cache: dict, batch: dict, cfg: ModelConfig, mesh):
+    """`decode_step` over plain tensors: all rows, or a rank's rows."""
     x = embed_inputs(params, {**batch, "pos_offset": cache["pos"][0] + 1}, cfg)
     pos = cache["pos"] + 1  # position of the current token
     positions = pos[:, None]
@@ -313,14 +437,14 @@ def decode_step(params, cache: dict, batch: dict, cfg: ModelConfig, mesh=None):
         for idx in range(cfg.n_layers):
             st = rwkv_mod.RWKVState(cache["wkv"][idx], cache["shift_t"][idx],
                                     cache["shift_c"][idx])
-            y, wkv_new, shift_t = rwkv_mod.time_mix(x, lay, idx, cfg, st)
+            y, wkv_new, shift_t = rwkv_mod.time_mix(x, lay, idx, cfg, st, mesh)
             x = x + y
-            cm, shift_c = rwkv_mod.channel_mix(x, lay, idx, cfg, st)
+            cm, shift_c = rwkv_mod.channel_mix(x, lay, idx, cfg, st, mesh)
             x = x + cm
             states.append((wkv_new, shift_t, shift_c))
         for i, name in enumerate(("wkv", "shift_t", "shift_c")):
             new_cache[name] = torch.stack([st[i] for st in states]).to(cache[name].dtype)
-        return output_logits(params, x, cfg), new_cache
+        return output_logits(params, x, cfg, mesh), new_cache
 
     if cfg.block == "hymba":
         # Global layers index the full caches in order, SWA layers the
@@ -335,9 +459,10 @@ def decode_step(params, cache: dict, batch: dict, cfg: ModelConfig, mesh=None):
                 x, pl, cfg, cache[f"k_{tier}"][j], cache[f"v_{tier}"][j], pos, win,
                 positions)
             ssm_out, st_new = ssm_mod.ssm_branch(
-                x, slice_layer(params["ssm"], li), cfg, ssm_mod.SSMState(cache["ssm_h"][li]))
+                x, slice_layer(params["ssm"], li), cfg,
+                ssm_mod.SSMState(cache["ssm_h"][li]), mesh)
             x = _hymba_mix(x, attn, ssm_out, params["branch_norm"][li], cfg)
-            ff, _ = _ffn(x, pl, cfg)
+            ff, _ = _ffn(x, pl, cfg, mesh)
             x = x + ff
             kv[f"k_{tier}"].append(kc)
             kv[f"v_{tier}"].append(vc)
@@ -345,7 +470,7 @@ def decode_step(params, cache: dict, batch: dict, cfg: ModelConfig, mesh=None):
         for name, leaves in kv.items():
             new_cache[name] = torch.stack(leaves) if leaves else cache[name]
         new_cache["ssm_h"] = torch.stack(hs)
-        return output_logits(params, x, cfg), new_cache
+        return output_logits(params, x, cfg, mesh), new_cache
 
     # attention stacks (dense / MoE / MusicGen / VLM)
     grouped_cross = cfg.cross_attn_every > 0
@@ -371,10 +496,10 @@ def decode_step(params, cache: dict, batch: dict, cfg: ModelConfig, mesh=None):
             # the forward (ROADMAP.md C9).
             x = _decode_cross(x, slice_layer(params["cross_layers"], idx),
                               cache["cross_k"][idx], cache["cross_v"][idx], cfg)
-        ff, _ = _ffn(x, pl, cfg)
+        ff, _ = _ffn(x, pl, cfg, mesh)
         x = x + ff
         ks.append(kc)
         vs.append(vc)
     new_cache["k"] = torch.stack(ks)
     new_cache["v"] = torch.stack(vs)
-    return output_logits(params, x, cfg), new_cache
+    return output_logits(params, x, cfg, mesh), new_cache

@@ -37,20 +37,25 @@ batch axes and `loss_fn` the loss of the whole batch, every rank's
 masked CE sum over the global count of valid tokens plus the mean of
 the per-block aux losses (the reference's value under `shard_map`).  A
 plain batch is the rank's own rows, and the results are those rows'.
+Analog leaves read the rows of a DTensor batch with the read noise of
+their flattened indices in the whole batch (`act_sharding.
+row_token_ids`), so a rank's rows draw the unsharded forward's noise.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any
 
 import torch
 
+from repro_torch.cim import current_token_ids, token_stream_ids
 from repro_torch.distributed.collectives import all_reduce_axes, mean_over, reduce_from
 from repro_torch.distributed.sharding import is_dtensor
 
 from . import rwkv6 as rwkv_mod
 from . import ssm as ssm_mod
-from .act_sharding import batch_rows, constrain
+from .act_sharding import batch_rows, constrain, row_token_ids, rows_like
 from .attention import chunked_causal_attention, cross_attention
 from .config import ModelConfig
 from .layers import (
@@ -294,26 +299,31 @@ def forward(params, batch: dict, cfg: ModelConfig, mesh=None, *,
     optional cond (B, T, dc).  Returns (logits, aux_loss, caches | None).
 
     On a mesh: the rank's rows (see the module docstring); with a DTensor
-    batch the logits are a DTensor over the batch axes and aux the mean
-    over the row blocks.  Caches on a mesh are the serving half of
-    ROADMAP.md A5."""
+    batch the logits and the caches (batch on axis 1) are DTensors over
+    the batch axes and aux the mean over the row blocks."""
     if mesh is None:
         return _forward(params, batch, cfg, None, collect_cache, pos_offset)
-    if collect_cache:
-        raise NotImplementedError("forward(mesh=, collect_cache=True): caches on a mesh "
-                                  "are the serving half of ROADMAP.md A5")
     lb, rows = batch_rows(batch, mesh)
-    logits, aux, _ = _forward(params_at_use(params), lb, cfg, mesh, False, pos_offset)
-    if not any(is_dtensor(v) for v in batch.values()):
-        return logits, aux, None
-    from torch.distributed.tensor import DTensor
+    ref = next((v for v in batch.values() if is_dtensor(v)), None)
+    with row_token_stream(ref, lb):
+        logits, aux, caches = _forward(params_at_use(params), lb, cfg, mesh,
+                                       collect_cache, pos_offset)
+    if ref is None:
+        return logits, aux, caches
+    if caches is not None:
+        caches = {k: rows_like(v, ref, dim=1) for k, v in caches.items()}
+    return rows_like(logits, ref), mean_over(aux, mesh, rows), caches
 
-    ref = next(v for v in batch.values() if is_dtensor(v))
-    shape = (ref.shape[0],) + tuple(logits.shape[1:])
-    logits = DTensor.from_local(logits, mesh, ref.placements, run_check=False,
-                                shape=torch.Size(shape),
-                                stride=torch.empty(shape, device="meta").stride())
-    return logits, mean_over(aux, mesh, rows), None
+
+def row_token_stream(ref, local_batch: dict):
+    """Context keying analog read noise by the rows' flattened indices in
+    the whole batch: a no-op without a DTensor `ref`, when the rank holds
+    every row, or inside an ambient `token_stream_ids` (request ids)."""
+    if ref is None or current_token_ids() is not None:
+        return contextlib.nullcontext()
+    x = local_batch.get("tokens", local_batch.get("embeds"))
+    ids = row_token_ids(ref, x.shape[0], x.shape[1])
+    return token_stream_ids(ids) if ids is not None else contextlib.nullcontext()
 
 
 def _forward(params, batch: dict, cfg: ModelConfig, mesh, collect_cache: bool,

@@ -68,6 +68,7 @@ def sample_token_read_noise(
     token_ids: torch.Tensor | None = None,
     tiles: int | None = None,
     planes: int | None = None,
+    cols: tuple[int, int] | None = None,
 ) -> torch.Tensor | None:
     """Per-read CIM inference noise; one batched draw for a whole leaf.
 
@@ -83,7 +84,10 @@ def sample_token_read_noise(
 
     The (tile, plane, token) key lattice is built by broadcasting
     `rng.fold_in` and drawn by one batched `rng.normal`.  `token_ids`
-    defaults to ``arange(T)``.  Returns None when sigma <= 0.
+    defaults to ``arange(T)``.  `cols=(lo, hi)` draws only output
+    columns [lo, hi) of the M, bitwise those of the whole draw
+    (`rng.normal_cols`): a rank serving a block of a leaf's columns.
+    Returns None when sigma <= 0.
     """
     if sigma_lsb <= 0.0:
         return None
@@ -93,14 +97,20 @@ def sample_token_read_noise(
     token_ids = token_ids.to(torch.int32)
     if (tiles is None) != (planes is None):
         raise ValueError("tiles and planes must be given together")
+    lo, hi = cols if cols is not None else (0, m)
+    whole = (lo, hi) == (0, m)
+
+    def draw(keys, shape):
+        return rng.normal(keys, shape) if whole else rng.normal_cols(keys, shape, lo, hi)
+
     if tiles is None:
         tok_keys = rng.fold_col_keys(key, token_ids)
-        nz = rng.normal(tok_keys, (n_tokens, n_slices, m))
+        nz = draw(tok_keys, (n_tokens, n_slices, m))
         return sigma_lsb * nz.permute(1, 0, 2)
     flat = _lattice_keys(key, tiles, planes, token_ids).reshape(-1, 2)
-    nz = rng.normal(flat, (tiles * planes * n_tokens, n_slices, m))
-    nz = nz.reshape(tiles, planes, n_tokens, n_slices, m)
+    nz = draw(flat, (tiles * planes * n_tokens, n_slices, m))
+    nz = nz.reshape(tiles, planes, n_tokens, n_slices, hi - lo)
     # (Ti, P, T, S, M) -> (Ti, S, P, T, M) -> (Ti, S, P*T, M), contiguous
     # as the kernel takes it.
     nz = nz.permute(0, 3, 1, 2, 4).contiguous()
-    return sigma_lsb * nz.reshape(tiles, n_slices, planes * n_tokens, m)
+    return sigma_lsb * nz.reshape(tiles, n_slices, planes * n_tokens, hi - lo)

@@ -48,6 +48,17 @@ batch of `n_slots` busy against a request queue:
 * **Telemetry**: each admission, prefill chunk, decode step and
   maintenance call is an `obs` span whose ``launches`` arg holds the
   kernels it launched (`kernels.launches_since`), host-side counts only.
+* **Data-sharded decode** (`batch_mesh=`, a `DeviceMesh`): the cache is
+  stored as `launch.shardings.decode_batch_sharding` lays it out (only
+  the batch axis splits, over "data", so every per-slot reduction stays
+  on one rank) and each rank decodes its block of the slots
+  (`decode_vec_sharding`).  Every rank runs the same admissions, chunks
+  and decode steps in the same order, so their collectives match: an
+  admission is prefilled on every rank and written by the rank holding
+  the slot, and each step's tokens and metrics are gathered over the
+  batch axes before the one host copy, so the host's decisions are the
+  same everywhere.  The engine's own `mesh`, if any, is what the steps
+  run on (parameters gathered at use, expert-parallel MoE).
 """
 
 from __future__ import annotations
@@ -65,6 +76,7 @@ import torch
 from repro_torch import kernels, obs
 from repro_torch.cim import token_stream_ids
 from repro_torch.core import rng
+from repro_torch.distributed.collectives import all_gather_axes, all_reduce_axes, block_of
 from repro_torch.models import decode_step, init_cache, prefill, write_cache_slot
 
 from .engine import make_prefill_chunk_step
@@ -200,6 +212,8 @@ class ContinuousScheduler:
       device_metrics: compute per-step metrics and the batch-occupancy
         digest on the device and fetch them on the SAME copy as the
         tokens.  Token values are identical either way.
+      batch_mesh: optional `DeviceMesh` whose "data" axis splits the
+        decode batch (see the module docstring).
       name: digest namespace prefix ("serve").
       device: where the cache, keys and steps live ("cuda" by default).
     """
@@ -224,11 +238,14 @@ class ContinuousScheduler:
         device="cuda",
     ):
         if batch_mesh is not None:
-            raise NotImplementedError(
-                "batch_mesh= (data-sharded decode) is the serving half of "
-                "ROADMAP.md A5, not ported yet")
+            from torch.distributed.device_mesh import DeviceMesh
+
+            if not isinstance(batch_mesh, DeviceMesh):
+                raise TypeError(f"batch_mesh must be a DeviceMesh, not "
+                                f"{type(batch_mesh).__name__}")
         self.engine = engine
         self.cfg = cfg = engine.cfg
+        self.mesh = engine.mesh
         self.device = torch.device(device)
         self.temperature = float(engine.temperature)
         self.n_slots = n_slots
@@ -299,6 +316,27 @@ class ContinuousScheduler:
             )
         if cfg.n_codebooks > 1:
             raise ValueError("multi-codebook heads are not admissible")
+        # This rank's slots [lo, hi) and the mesh axes splitting them.
+        self.batch_mesh = batch_mesh
+        self._rows, self._row_axes = slice(0, n_slots), ()
+        if batch_mesh is not None:
+            from torch.distributed.tensor import Shard
+
+            from repro_torch.distributed.sharding import shard_tree
+            from repro_torch.launch.shardings import (
+                decode_batch_sharding,
+                decode_vec_sharding,
+            )
+
+            cache = shard_tree(cache, decode_batch_sharding(batch_mesh, cache))
+            vec = decode_vec_sharding(batch_mesh, n_slots)
+            self._row_axes = tuple(n for n, pl in zip(batch_mesh.mesh_dim_names,
+                                                      vec.placements)
+                                   if isinstance(pl, Shard))
+            if self._row_axes:
+                blk, n_blk = block_of(batch_mesh, self._row_axes)
+                per = n_slots // n_blk
+                self._rows = slice(blk * per, (blk + 1) * per)
         self.cache = cache
 
         # Each count bumps once when its step function is built, so a
@@ -371,10 +409,10 @@ class ContinuousScheduler:
         if fn is not None:
             return fn
         self.trace_counts["admit"] += 1
-        cfg, max_len = self.cfg, self.max_len
+        cfg, mesh, max_len = self.cfg, self.mesh, self.max_len
 
         def admit(params, tokens, true_len, rid: int, master, cache, slot: int):
-            last, single = prefill(params, {"tokens": tokens}, cfg,
+            last, single = prefill(params, {"tokens": tokens}, cfg, mesh,
                                    max_len=max_len, true_len=true_len)
             tok = self._select_tokens(last[0], master, rid, 0)
             return tok.to(torch.int32), write_cache_slot(cache, single, slot)
@@ -386,28 +424,31 @@ class ContinuousScheduler:
         if self._decode_fn is not None:
             return self._decode_fn
         self.trace_counts["decode"] += 1
-        cfg, device_metrics = self.cfg, self.device_metrics
+        cfg, mesh, device_metrics = self.cfg, self.mesh, self.device_metrics
+        bmesh, axes = self.batch_mesh, self._row_axes
 
         def decode(params, cache, vecs, master, dig):
+            # This rank's slots: their tokens, request ids and counts.
             cur, rids, gens = vecs[0], vecs[1], vecs[2]
             # Analog leaves fold the REQUEST id into their per-row noise
             # sub-streams, so a request's logits do not depend on its
             # slot or its neighbours.  Digital params ignore the context.
             with token_stream_ids(rids):
-                logits, cache = decode_step(params, cache, {"tokens": cur[:, None]}, cfg)
+                logits, cache = decode_step(params, cache, {"tokens": cur[:, None]},
+                                            cfg, mesh)
             last = logits[:, -1]
             toks = self._select_tokens(last, master, rids, gens).to(torch.int32)
             m = {}
             if device_metrics:
                 active = rids >= 0
-                n_active = torch.sum(active).to(torch.float32)
                 greedy = torch.argmax(last, dim=-1).to(torch.int32)
-                m = {
-                    "decode_active_slots": n_active,
-                    "decode_greedy_agree": torch.sum(
-                        active & (toks == greedy)).to(torch.float32),
-                }
+                sums = torch.stack([torch.sum(active), torch.sum(active & (toks == greedy))]
+                                   ).to(torch.float32)
+                n_active, agree = all_reduce_axes(sums, bmesh, axes).unbind()
+                m = {"decode_active_slots": n_active, "decode_greedy_agree": agree}
                 dig = dig.add(n_active)
+            if axes:
+                toks = all_gather_axes(toks, bmesh, axes)
             return toks, m, dig, cache
 
         self._decode_fn = decode
@@ -418,7 +459,7 @@ class ContinuousScheduler:
         if fn is not None:
             return fn
         self.trace_counts["chunk"] += 1
-        step = make_prefill_chunk_step(self.cfg, start=start, final=final,
+        step = make_prefill_chunk_step(self.cfg, self.mesh, start=start, final=final,
                                        park_pos=self.max_len)
 
         def chunk(params, cache, tokens, true_len: int, rid: int, master, slot: int):
@@ -630,7 +671,8 @@ class ContinuousScheduler:
             fn = self._get_decode()
             with self._no_sync():
                 params = self.engine.access_params(self.n_slots)
-                vecs = self._to_device(np.stack([self._cur, self._rid, self._gen]))
+                vecs = self._to_device(
+                    np.stack([self._cur, self._rid, self._gen])[:, self._rows])
                 toks, m, dig, self.cache = fn(params, self.cache, vecs, self.key,
                                               self._occ_digest)
             # THE per-step host sync.

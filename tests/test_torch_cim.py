@@ -85,6 +85,18 @@ IDEAL = CIMConfig(dac_bits=None, adc_bits=None, sigma_read_lsb=0.0)
 J_IDEAL = JCIMConfig(dac_bits=None, adc_bits=None, sigma_read_lsb=0.0)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two torch threads for the module, restored after it (the suite
+    runs files side by side in worker processes, and a thread per core
+    makes the port's many small CPU ops several times slower)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
+
 def _legacy():
     return jax.threefry_partitionable(False)
 

@@ -44,6 +44,18 @@ from repro_torch.models import init_params
 BUCKETS = dict(min_bucket=4096, max_bucket=4096)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two torch threads for the module, restored after it (the suite
+    runs files side by side in worker processes, and a thread per core
+    makes the port's many small CPU ops several times slower)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
+
 @pytest.fixture(scope="module")
 def jax_params():
     with jax.threefry_partitionable(False):

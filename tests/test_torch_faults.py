@@ -95,6 +95,18 @@ UIDS = np.array([3, 7, 8, 9, 100, 101, 102, 64, 12345, 1 << 20, (1 << 24) + 5,
                  (1 << 30) + 1, 21_000_000, 5, 6, 4], np.int64)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two torch threads for the module, restored after it (the suite
+    runs files side by side in worker processes, and a thread per core
+    makes the port's many small CPU ops several times slower)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
+
 def _legacy():
     return jax.threefry_partitionable(False)
 

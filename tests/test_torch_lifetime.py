@@ -68,6 +68,18 @@ LEAF = "['layers']['w_up']"
 WV_KW = dict(max_fine_iters=12, max_coarse_iters=4)   # the tiny deployment's
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two torch threads for the module, restored after it (the suite
+    runs files side by side in worker processes, and a thread per core
+    makes the port's many small CPU ops several times slower)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
+
 def _legacy():
     return jax.threefry_partitionable(False)
 

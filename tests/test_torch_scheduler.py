@@ -84,6 +84,18 @@ NOISY = dict(dac_bits=4, adc_bits=10, sigma_read_lsb=0.2)
 WV_KW = dict(max_fine_iters=12, max_coarse_iters=4)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two torch threads for the module, restored after it (the suite
+    runs files side by side in worker processes, and a thread per core
+    makes the port's many small CPU ops several times slower)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
+
 def _legacy():
     return jax.threefry_partitionable(False)
 
@@ -526,7 +538,7 @@ def test_rejects_what_it_does_not_serve(digital):
         _, cfg = _cfgs(**bad)
         with pytest.raises(ValueError, match=match):
             ContinuousScheduler(ServeEngine(cfg, tparams), device="cpu")
-    with pytest.raises(NotImplementedError, match="serving half of ROADMAP.md A5"):
+    with pytest.raises(TypeError, match="batch_mesh must be a DeviceMesh"):
         ContinuousScheduler(eng, batch_mesh=object(), device="cpu")
     for kw, match in ((dict(prefill_chunk_tokens=12), "power of two"),
                       (dict(prefill_chunk_tokens=8), "attn_chunk_q"),

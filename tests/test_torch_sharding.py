@@ -42,12 +42,36 @@
     * `compressed_psum` over "pod" on a (2, 2, 2) mesh: first-round error
       < 2e-2, bias after 100 rounds < 2e-3, and every all-reduce payload
       on the pod group int32 (a spy on `torch.distributed.all_reduce`).
-(c) A job whose rank dies fails within its deadline instead of hanging.
+(c) Deploy and serve on a mesh, in the same job, each held bitwise
+    against the port's unsharded run (the reference's own mesh deploy
+    crashes, ROADMAP.md C2; the unsharded port deploy is held against
+    the JAX deploy in `tests/test_torch_deploy.py`):
+    * `deploy_arrays(mesh=)` on an (8,) column mesh with faults and on
+      the (2, 4) mesh: conductances, d2d, fault maps, every report field
+      and the health tree, with one host fetch; the column axis split
+      over "data" alone (`mesh_axes`), and a bucket no extent divides;
+    * `launch/program.py` on the 8 ranks against its ``--baseline``;
+    * `CIMExecutor(mesh=)` + `ServeEngine(mesh=)` with read noise on:
+      tokens and prefill logits;
+    * `ContinuousScheduler(batch_mesh=make_debug_mesh(4, 2))` on the
+      reference's `_SHARD_SCRIPT` stream, digital and analog: tokens,
+      one host sync per decode step, `trace_counts` flat after warmup;
+      the digital tokens are also held against the reference's own
+      (4, 2) mesh run of that stream (JAX in a subprocess with 8 forced
+      devices, run before the job): equal up to the first token
+      whose JAX-side top-2 margin is within `2 * atol / T`, as
+      `tests/test_torch_scheduler.py` holds the unsharded scheduler;
+    * every registry family's `forward(mesh=, collect_cache=True)`,
+      prefill and two decode steps at 4 rows a rank; at one row a rank, the CPU BLAS rounds a one-row product
+      unlike the same row of a larger one (a dense config's logits within
+      1e-5 of the largest, argmax equal).
+(d) A job whose rank dies fails within its deadline instead of hanging.
 """
 
 import json
 import os
 import pickle
+import re
 import subprocess
 import sys
 import textwrap
@@ -57,11 +81,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 import torch.multiprocessing as tmp_mp
 
 import torch_mesh_worker as worker
 from repro.data import SyntheticLM as JSyntheticLM
 from repro.models import ModelConfig as JModelConfig
+from repro.models import init_params as j_init_params
 from repro.models.moe import init_moe_params as j_init_moe_params
 from repro.models.moe import moe_block as j_moe_block
 from repro.optim import AdamWConfig as JAdamWConfig
@@ -79,6 +105,8 @@ from repro_torch.launch.shardings import (
 from repro_torch.models.decoding import init_cache
 from repro_torch.optim import AdamWConfig
 from repro_torch.training import init_train_state
+
+from test_torch_scheduler import DIGITAL_ATOL, _assert_tokens_follow
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORLD = 8
@@ -180,15 +208,80 @@ def test_specs_match_reference(mesh_name, arch, ref_specs):
         assert got[k] == want[k], k
 
 
+# The reference's `_SHARD_SCRIPT` mesh run (`tests/test_serving_scheduler.py`)
+# on the parameters the job's ranks get, recording the top-2 margin of every
+# sampled row as `test_torch_scheduler._JRecording` does.
+SHARD_SERVE_SCRIPT = textwrap.dedent(
+    """
+    import os, sys
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+    import json, pickle, jax, jax.numpy as jnp
+    from repro.launch.mesh import make_debug_mesh
+    from repro.models import ModelConfig
+    from repro.serving import ContinuousScheduler, ServeEngine, poisson_requests
+
+    class Recording(ContinuousScheduler):
+        def __init__(self, *args, **kw):
+            self.margins = {}
+            super().__init__(*args, **kw)
+
+        def _select_token(self, logits, key, rid, gen):
+            tok = super()._select_token(logits, key, rid, gen)
+            k = jax.random.fold_in(jax.random.fold_in(key, rid), gen)
+            score = (logits.astype(jnp.float32) / self.temperature
+                     + jax.random.gumbel(k, logits.shape))
+            top2 = jax.lax.top_k(score, 2)[0]
+            jax.debug.callback(self._record, rid, gen, top2[0] - top2[1])
+            return tok
+
+        def _record(self, rid, gen, margin):
+            self.margins[f"{int(rid)},{int(gen)}"] = float(margin)
+
+    with jax.threefry_partitionable(False):
+        cfg = ModelConfig(**json.loads(sys.argv[2]), dtype=jnp.float32)
+        with open(sys.argv[1], "rb") as f:
+            params = jax.tree.map(jnp.asarray, pickle.load(f)["sched_params"])
+        reqs = poisson_requests(3, 8, rate=0.8, vocab=cfg.vocab_size,
+                                prompt_lens=(3, 24), max_new=(3, 6))
+        s = Recording(ServeEngine(cfg, params, temperature=0.7), n_slots=4,
+                      max_len=64, key=jax.random.PRNGKey(5), prefill_chunk_tokens=16,
+                      batch_mesh=make_debug_mesh(4, 2))
+        s.warmup(prompt_range=(3, 24))
+        warm = dict(s.trace_counts)
+        recs = s.run(reqs)
+        jax.effects_barrier()
+        assert s.trace_counts == warm and s.host_syncs == s.decode_steps
+    print("SHARD-SERVE " + json.dumps(
+        {"tokens": {r.rid: [int(t) for t in r.tokens] for r in recs},
+         "margins": s.margins}))
+    """
+)
+
+
+def _shard_serve(payload_path: str) -> dict:
+    """The reference's tokens and margins, by request and (rid, index)."""
+    res = subprocess.run([sys.executable, "-c", SHARD_SERVE_SCRIPT, payload_path,
+                          json.dumps(worker.SCHED_CFG)], capture_output=True, text=True,
+                         cwd=ROOT, timeout=300,
+                         env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")})
+    assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-4000:]
+    line = next(x for x in res.stdout.splitlines() if x.startswith("SHARD-SERVE "))
+    res = json.loads(line[len("SHARD-SERVE "):])
+    return {"tokens": {int(r): t for r, t in res["tokens"].items()},
+            "margins": {tuple(map(int, k.split(","))): v
+                        for k, v in res["margins"].items()}}
+
+
 # ------------------------------------------------------------------ (b)
-def _spawn(fn, world: int, workdir: str, deadline_s: float) -> None:
+def _spawn(fn, world: int, workdir: str, deadline_s: float, meanwhile=None):
     """Run `fn(rank, world, workdir)` on `world` spawned ranks; raise if a
     rank fails or the job outlives its deadline (every rank is then
-    killed)."""
+    killed).  Returns `meanwhile()`, which runs here while the ranks do."""
     ctx = tmp_mp.start_processes(fn, args=(world, workdir), nprocs=world, join=False,
                                  start_method="spawn")
     end = time.monotonic() + deadline_s
     try:
+        result = meanwhile() if meanwhile is not None else None
         while not ctx.join(timeout=1.0):
             if time.monotonic() > end:
                 raise TimeoutError(f"the {world}-rank job outlived {deadline_s} s")
@@ -198,6 +291,7 @@ def _spawn(fn, world: int, workdir: str, deadline_s: float) -> None:
                 p.kill()
         for p in ctx.processes:
             p.join(10)
+    return result
 
 
 @pytest.fixture(scope="module")
@@ -220,8 +314,11 @@ def job(tmp_path_factory):
             state0, batch)
         s_accum, m_accum = jax.jit(j_make_train_step(mcfg, opt, total_steps=10,
                                                      grad_accum=2))(state0, batch)
+        sched_params = j_init_params(jax.random.PRNGKey(0),
+                                     JModelConfig(**worker.SCHED_CFG, dtype=jnp.float32))
     to_np = lambda t: jax.tree.map(np.asarray, t)  # noqa: E731
     payload = {
+        "sched_params": to_np(sched_params),
         "moe": {"p": p, "x": x},
         "train": {"state": {"params": to_np(state0.params), "m": to_np(state0.opt.m),
                             "v": to_np(state0.opt.v), "step": int(state0.opt.step)},
@@ -231,7 +328,8 @@ def job(tmp_path_factory):
     }
     with open(workdir / "payload.pkl", "wb") as f:
         pickle.dump(payload, f)
-    _spawn(worker.run, WORLD, str(workdir), JOB_DEADLINE_S)
+    jax_sched = _shard_serve(str(workdir / "payload.pkl"))
+    baseline = _spawn(worker.run, WORLD, str(workdir), JOB_DEADLINE_S, meanwhile=_baseline)
     outs = []
     for r in range(WORLD):
         with open(workdir / f"out_{r}.pkl", "rb") as f:
@@ -239,8 +337,21 @@ def job(tmp_path_factory):
     ref = {"moe_out": np.asarray(moe_out), "loss": float(m_plain["loss"]),
            "params": jax.tree.map(np.asarray, s_plain.params),
            "accum_loss": float(m_accum["loss"]),
-           "accum_params": jax.tree.map(np.asarray, s_accum.params)}
+           "accum_params": jax.tree.map(np.asarray, s_accum.params),
+           "program_baseline": baseline, "jax_sched": jax_sched}
     return outs, ref
+
+
+def _baseline() -> str:
+    """`launch/program.py --baseline`'s line, on one thread (run while the
+    job runs)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return worker.program_line(["--arch", worker.PROGRAM_ARCH, "--device", "cpu",
+                                    "--baseline"])
+    finally:
+        torch.set_num_threads(before)
 
 
 def test_moe_block_mesh_matches_reference(job):
@@ -353,6 +464,79 @@ def test_compressed_psum_on_pod_mesh(job):
 
 
 # ------------------------------------------------------------------ (c)
+def _strip_path(line: str) -> str:
+    return re.sub(r" \[[^]]*\]", "", line)
+
+
+@pytest.mark.parametrize("case", ["cols_faults", "data_model"])
+def test_mesh_deploy_matches_unsharded(case, job):
+    outs = [o["serve"] for o in job[0]]
+    ref, ref_syncs = outs[{"cols_faults": 0, "data_model": 5}[case]][f"ref_deploy_{case}"]
+    assert ref_syncs == 1
+    for r, o in enumerate(outs):
+        assert o[f"deploy_{case}"] == (ref, 1), r
+
+
+def test_mesh_axes_subset_and_whole_bucket_match(job):
+    outs = [o["serve"] for o in job[0]]
+    for r, o in enumerate(outs):
+        assert o["packed_data_axis"] == outs[6]["ref_packed_data_axis"], r
+        assert o["whole_bucket"] == outs[6]["ref_whole_bucket"], r
+
+
+def test_program_launcher_matches_baseline(job):
+    outs = [o["serve"] for o in job[0]]
+    line, baseline = outs[0]["program"], job[1]["program_baseline"]
+    assert "(smoke) with harp [bucketed pipeline (" in line and "1 host sync)]" in line
+    assert "[per-leaf baseline]" in baseline
+    assert _strip_path(line) == _strip_path(baseline)
+    assert all(o["program"] == line for o in outs)
+
+
+def test_mesh_analog_serve_matches_unsharded(job):
+    outs = [o["serve"] for o in job[0]]
+    for r, o in enumerate(outs):
+        assert o["serve"] == outs[2]["ref_serve"], r
+        local, whole = o["cim_local"]
+        assert local[:-1] == whole[:-1] and local[-1] * 4 == whole[-1], r
+
+
+@pytest.mark.parametrize("kind", ["digital", "analog"])
+def test_batch_mesh_scheduler_matches_unsharded(kind, job):
+    outs = [o["serve"] for o in job[0]]
+    ref = outs[3][f"ref_sched_{kind}"]
+    assert ref["flat"] and ref["syncs"][0] == ref["syncs"][1]
+    for r, o in enumerate(outs):
+        got = o[f"sched_{kind}"]
+        assert got["tokens"] == ref["tokens"], r
+        assert got["flat"] and got["syncs"] == ref["syncs"], (r, got["syncs"])
+        assert got["rows"][1] == 1, got["rows"]      # 4 slots over "data" = 4
+
+
+def test_batch_mesh_scheduler_follows_reference_mesh_run(job):
+    """The port's digital `batch_mesh` tokens against the reference's
+    `_SHARD_SCRIPT` run on its own (4, 2) mesh (temperature 0.7)."""
+    outs, ref = job
+    want = ref["jax_sched"]
+    for r, o in enumerate(outs):
+        _assert_tokens_follow(o["serve"]["sched_digital"]["tokens"], want["tokens"],
+                              want["margins"], 2 * DIGITAL_ATOL / 0.7)
+
+
+@pytest.mark.parametrize("arch", list(ARCHS))
+def test_family_mesh_decode_matches_unsharded(arch, job):
+    outs = [o["serve"] for o in job[0]]
+    for r, o in enumerate(outs):
+        assert o["families"][arch] == outs[4]["ref_families"][arch], r
+
+
+def test_one_row_per_rank_within_blas_rounding(job):
+    outs = [o["serve"] for o in job[0]]
+    rel, argmax_equal = outs[4]["one_row"]
+    assert rel <= 1e-5 and argmax_equal, rel
+
+
+# ------------------------------------------------------------------ (d)
 def test_dead_rank_fails_the_job_within_its_deadline(tmp_path):
     t0 = time.monotonic()
     with pytest.raises(Exception) as err:

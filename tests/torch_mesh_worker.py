@@ -9,9 +9,12 @@ process group has a timeout, and each rank writes what it computed to
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
+import hashlib
 import os
 import pickle
+import re
 
 import numpy as np
 import torch
@@ -19,8 +22,12 @@ import torch.distributed as dist
 
 from repro_torch import pytree
 from repro_torch.checkpoint import CheckpointManager
+from repro_torch.cim import CIMConfig, CIMExecutor
 from repro_torch.configs import ARCHS, get_smoke_config
 from repro_torch.configs.registry import ShapeSpec, materialize_inputs
+from repro_torch.convert import params_from_numpy
+from repro_torch.core import CircuitCost, FaultConfig, WVConfig, pipeline, rng
+from repro_torch.core.programmer import deploy_arrays
 from repro_torch.distributed.collectives import all_reduce_axes
 from repro_torch.distributed.sharding import (
     NamedSharding,
@@ -30,13 +37,20 @@ from repro_torch.distributed.sharding import (
     local_block,
     shard_tree,
 )
-from repro_torch.launch.mesh import axis_sizes, make_debug_mesh
+from repro_torch.launch import program
+from repro_torch.launch.mesh import _mesh, axis_sizes, make_debug_mesh
 from repro_torch.launch.shardings import shard_batch, state_sharding
-from repro_torch.models import ModelConfig, forward, init_params
+from repro_torch.models import ModelConfig, decode_step, forward, init_params, prefill
 from repro_torch.models.moe import ep_axes, moe_block
 from repro_torch.models.transformer import loss_fn
 from repro_torch.optim import AdamWConfig, AdamWState, compressed_psum
 from repro_torch.optim.compression import CompressionState
+from repro_torch.serving import (
+    ContinuousScheduler,
+    ServeEngine,
+    make_prefill_step,
+    poisson_requests,
+)
 from repro_torch.training import TrainState, make_eval_step, make_train_step
 
 TIMEOUT = datetime.timedelta(seconds=90)   # a collective waiting longer fails
@@ -59,7 +73,9 @@ def _init(rank: int, world: int, workdir: str, timeout=TIMEOUT) -> None:
 
 def run(rank: int, world: int, workdir: str) -> None:
     """The 8-rank job: MoE EP, the sharded train step, elastic restore,
-    every registry smoke config's sharded loss, `compressed_psum`."""
+    every registry smoke config's sharded loss, `compressed_psum`, then
+    deploy and serve on meshes (`_serve`, last: its references run on
+    different ranks after the last collective)."""
     _init(rank, world, workdir)
     try:
         with open(os.path.join(workdir, "payload.pkl"), "rb") as f:
@@ -69,7 +85,8 @@ def run(rank: int, world: int, workdir: str) -> None:
                "ep_grads": _ep_grads(mesh),
                "train": _train(mesh, payload["train"], workdir),
                "losses": _losses(mesh),
-               "compress": _compress(payload["compress"])}
+               "compress": _compress(payload["compress"]),
+               "serve": _serve(mesh, payload["sched_params"])}
         with open(os.path.join(workdir, f"out_{rank}.pkl"), "wb") as f:
             pickle.dump(out, f)
     finally:
@@ -299,3 +316,220 @@ def _compress(g: np.ndarray) -> dict:
     finally:
         dist.all_reduce = real
     return dict(err0=err0, bias=bias, dtypes=sorted(set(seen)), n_calls=len(seen))
+
+
+# ---------------------------------------------------------------------------
+# Deploy and serve on a mesh: every result is held bitwise against the
+# port's unsharded run (the scheduler's digital tokens also against the
+# reference's own (4, 2) mesh run).  The sharded runs go first on every rank (their
+# collectives must match); each rank then hashes what it holds
+# (`_digest`), and the unsharded references run after the last
+# collective, split over ranks 0-6 so that they overlap (the parent runs
+# `launch/program.py --baseline` while it waits for the job).
+# ---------------------------------------------------------------------------
+SCHED_CFG = dict(name="shard-serve", n_layers=2, d_model=32, n_heads=2, n_kv_heads=2,
+                 head_dim=16, d_ff=64, vocab_size=64, attn_chunk_q=16, attn_chunk_kv=16,
+                 remat=False, tie_embeddings=False)
+FAULTS = dict(p_stuck_hrs=0.01, p_stuck_lrs=0.01, p_weak=0.02, sigma_tile_eff_frac=0.05)
+PROGRAM_ARCH = "smollm-360m"
+
+
+def _digest(obj) -> str:
+    """sha256 of a tree of tensors, arrays, dataclasses and scalars: two
+    ranks' digests are equal iff their values are, bit for bit."""
+    h = hashlib.sha256()
+
+    def feed(o):
+        if isinstance(o, torch.Tensor):
+            o = o.detach().contiguous().numpy()
+        if isinstance(o, np.ndarray):
+            h.update(f"{o.dtype}{o.shape}".encode())
+            h.update(np.ascontiguousarray(o).tobytes())
+        elif dataclasses.is_dataclass(o) and not isinstance(o, type):
+            feed({f.name: getattr(o, f.name) for f in dataclasses.fields(o)})
+        elif isinstance(o, dict):
+            for k in sorted(o, key=str):
+                h.update(repr(k).encode())
+                feed(o[k])
+        elif isinstance(o, (list, tuple)):
+            h.update(b"[")
+            for v in o:
+                feed(v)
+            h.update(b"]")
+        else:
+            h.update(repr(o).encode())
+
+    feed(obj)
+    return h.hexdigest()
+
+
+def program_line(argv: list[str]) -> str:
+    """`launch/program.py`'s line without its rate (columns/s)."""
+    return re.sub(r", [0-9,]+ columns/s$", "", program.main(argv))
+
+
+def _deploy_digest(model, report) -> str:
+    arrays = {n: (st.g, st.d2d, st.fault) for n, st in model.arrays.items()}
+    return _digest((arrays, report, report.extra))
+
+
+def _stats_digest(g_blocks, stats_blocks) -> str:
+    return _digest((list(g_blocks), [tuple(st) for st in stats_blocks]))
+
+
+def _rows(mesh, batch: dict) -> dict:
+    return {k: NamedSharding(mesh, P("data", *[None] * (v.ndim - 1))).shard(v)
+            for k, v in batch.items()}
+
+
+def _family_steps(cfg, params, batch: dict, mesh) -> tuple:
+    """The forward with its caches, one prefill and two decode steps;
+    (logits of each step, final cache, the forward's logits and caches),
+    gathered whole."""
+    rows = _rows(mesh, batch) if mesh else batch
+    logits, _, caches = forward(params, rows, cfg, mesh, collect_cache=True)
+    whole = (gather(logits), {k: gather(v) for k, v in caches.items()})
+    last, cache = prefill(params, rows, cfg, mesh, max_len=20)
+    logits = [gather(last)]
+    for i in range(2):
+        if "tokens" in batch:
+            nb = {"tokens": torch.full((batch["tokens"].shape[0], 1), 5 + i,
+                                       dtype=batch["tokens"].dtype)}
+        else:
+            nb = {"embeds": batch["embeds"][:, :1] * (1 + i)}
+        lg, cache = decode_step(params, cache, _rows(mesh, nb) if mesh else nb, cfg, mesh)
+        logits.append(gather(lg))
+    return logits, {k: gather(v) for k, v in cache.items()}, whole
+
+
+def _family_inputs(arch: str, rows: int):
+    cfg = get_smoke_config(arch).replace(dtype=torch.float32)
+    if cfg.is_moe:
+        # Capacity lifted: each rank routes its rows with the reference's
+        # per-shard capacity, which drops other pairs than the whole batch.
+        cfg = cfg.replace(capacity_factor=float(cfg.moe_experts))
+    params = init_params(3, cfg, device="cpu")
+    batch = materialize_inputs(cfg, ShapeSpec("t", "train", 16, rows), seed=1,
+                               device="cpu")["batch"]
+    return cfg, params, {k: v for k, v in batch.items() if k in ("tokens", "embeds", "cond")}
+
+
+def _scheduler_run(cfg, engine, bmesh) -> dict:
+    """The reference's `_SHARD_SCRIPT` stream through `ContinuousScheduler`."""
+    reqs = poisson_requests(3, 8, rate=0.8, vocab=cfg.vocab_size, prompt_lens=(3, 24),
+                            max_new=(3, 6))
+    s = ContinuousScheduler(engine, n_slots=4, max_len=64,
+                            key=rng.PRNGKey(5, device="cpu"), prefill_chunk_tokens=16,
+                            batch_mesh=bmesh, device="cpu")
+    s.warmup(prompt_range=(3, 24))
+    warm = dict(s.trace_counts)
+    recs = s.run(reqs)
+    return dict(tokens={r.rid: list(r.tokens) for r in recs},
+                flat=s.trace_counts == warm, syncs=(s.host_syncs, s.decode_steps),
+                rows=tuple(s.cache["k"].to_local().shape) if bmesh is not None else None)
+
+
+def _serve(mesh, sched_params: dict) -> dict:
+    """Deploy and serve on meshes against the unsharded port.
+    `sched_params` are the reference's `_SHARD_SCRIPT` parameters (numpy),
+    so that the scheduler's tokens can also be held against the
+    reference's own mesh run."""
+    rank = dist.get_rank()
+    out: dict = {}
+    cols = _mesh((dist.get_world_size(),), ("cols",), "cpu", TIMEOUT)
+    cfg = get_smoke_config("qwen3-0.6b")
+    params = init_params(0, cfg, device="cpu")
+    key = rng.PRNGKey(7, device="cpu")
+    wv = WVConfig(max_fine_iters=12)
+    buckets = dict(min_bucket=4096, max_bucket=4096)
+    deploys = {"cols_faults": (cols, dict(fault_cfg=FaultConfig(**FAULTS))),
+               "data_model": (mesh, {})}
+    models = {}
+    for name, (m, kw) in deploys.items():
+        before = pipeline.host_sync_count()
+        model, report = deploy_arrays(key, params, wv, device="cpu", mesh=m,
+                                      **buckets, **kw)
+        out[f"deploy_{name}"] = (_deploy_digest(model, report),
+                                 pipeline.host_sync_count() - before)
+        models[name] = model
+    dep = models["data_model"]
+    # The column axis over "data" alone, on two leaves' columns.
+    blocks = [dep.arrays[n].targets for n in sorted(dep.arrays)[:2]]
+    out["packed_data_axis"] = _stats_digest(*pipeline.program_packed_columns(
+        key, blocks, wv, mesh=mesh, mesh_axes=("data",), **buckets)[:2])
+    # 12 columns: no block split over 8 ranks, so every rank programs all.
+    odd = dep.arrays[sorted(dep.arrays)[0]].targets[:12]
+    ids = torch.arange(12, dtype=torch.int64)
+    d2d = pipeline.sample_d2d_for(key, ids, tuple(odd.shape), wv.device)
+    out["whole_bucket"] = _digest(pipeline.get_program_fn(wv, CircuitCost(), mesh)(
+        key, odd, d2d, ids))
+    out["program"] = program_line(["--arch", PROGRAM_ARCH, "--device", "cpu"])
+
+    # Analog serving with read noise on: the (2, 4) mesh splits the batch
+    # of 8 over "data" (4 rows a rank) and every leaf's columns over "model".
+    cim = CIMConfig(sigma_read_lsb=0.2)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (8, 8)).astype(np.int64))
+    eng = ServeEngine(cfg, None, mesh, executor=CIMExecutor(dep, cim, mesh=mesh))
+    ex = CIMExecutor(dep, cim, mesh=mesh)
+    w = ex.params()["layers"]["wq"]
+    out["cim_local"] = tuple(w.g_pos.to_local().shape), tuple(w.g_pos.shape)
+    logits, _ = make_prefill_step(cfg, mesh)(ex.tick(64), eng._rows({"tokens": toks}))
+    out["serve"] = _digest((eng.generate(toks, 4), gather(logits)))
+
+    # Continuous batching on the reference's (4, 2) mesh (one slot a rank),
+    # digital and through an analog executor whose columns split over "model".
+    bmesh = make_debug_mesh(4, 2, device="cpu", timeout=TIMEOUT)
+    scfg = ModelConfig(**SCHED_CFG, dtype=torch.float32)
+    sparams = params_from_numpy(sched_params, device="cpu")
+    sdep, _ = deploy_arrays(key, sparams, wv, device="cpu", mesh=bmesh)
+    out["sched_digital"] = _scheduler_run(
+        scfg, ServeEngine(scfg, sparams, temperature=0.7), bmesh)
+    out["sched_analog"] = _scheduler_run(
+        scfg, ServeEngine(scfg, temperature=0.7,
+                          executor=CIMExecutor(sdep, cim, mesh=bmesh)), bmesh)
+
+    # Every family's prefill + 2 decode steps, 4 rows a rank; and one row a
+    # rank for a dense config (the CPU's BLAS rounds a one-row product
+    # unlike the rows of a larger one: held within a tolerance).
+    out["families"] = {}
+    for arch in ARCHS:
+        fcfg, fparams, fbatch = _family_inputs(arch, 8)
+        out["families"][arch] = _digest(_family_steps(fcfg, fparams, fbatch, mesh))
+    one = _family_inputs("qwen3-0.6b", 2)
+    one_row = _family_steps(*one, mesh)[0]
+
+    # The unsharded references, after the last collective.
+    ref_deploy = {0: "cols_faults", 5: "data_model"}
+    if rank in ref_deploy:
+        name = ref_deploy[rank]
+        before = pipeline.host_sync_count()
+        model, report = deploy_arrays(key, params, wv, device="cpu", **buckets,
+                                      **deploys[name][1])
+        out[f"ref_deploy_{name}"] = (_deploy_digest(model, report),
+                                     pipeline.host_sync_count() - before)
+    if rank == 6:
+        out["ref_packed_data_axis"] = _stats_digest(*pipeline.program_packed_columns(
+            key, blocks, wv, **buckets)[:2])
+        out["ref_whole_bucket"] = _digest(pipeline.get_program_fn(wv, CircuitCost())(
+            key, odd, d2d, ids))
+    elif rank == 2:
+        eng = ServeEngine(cfg, executor=CIMExecutor(dep, cim))
+        ex = CIMExecutor(dep, cim)
+        logits, _ = make_prefill_step(cfg)(ex.tick(64), {"tokens": toks})
+        out["ref_serve"] = _digest((eng.generate(toks, 4), logits))
+    elif rank == 3:
+        out["ref_sched_digital"] = _scheduler_run(
+            scfg, ServeEngine(scfg, sparams, temperature=0.7), None)
+        out["ref_sched_analog"] = _scheduler_run(
+            scfg, ServeEngine(scfg, temperature=0.7, executor=CIMExecutor(sdep, cim)),
+            None)
+    elif rank == 4:
+        out["ref_families"] = {arch: _digest(_family_steps(*_family_inputs(arch, 8), None))
+                               for arch in ARCHS}
+        ref = _family_steps(*one, None)[0]
+        out["one_row"] = (max(float((a - b).abs().max() / b.abs().max())
+                              for a, b in zip(one_row, ref)),
+                          all(torch.equal(a.argmax(-1), b.argmax(-1))
+                              for a, b in zip(one_row, ref)))
+    return out
