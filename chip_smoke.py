@@ -168,7 +168,16 @@ CUDA toolkit.  Phases, each of which fails the run:
    over `MESH_REQUESTS` requests (the same tokens, phase 9's contracts);
    `repro_torch.launch.program`'s real mode; then `fwht`, `wv_step` and
    `acim_vmm_tiled` on this path's operands (`mesh_case` in the kernels
-   line, beside each kernel's `launches_mesh`).
+   line, beside each kernel's `launches_mesh`);
+17. the launch tools against the card: `launch.dryrun` counts
+   qwen3-0.6b's train_4k and decode_32k cells on the meta device on the
+   production pod, `launch.program --dryrun` 2^18 columns, and
+   `launch.report` renders them; then a HARP `program_columns` bucket
+   (2^18 x 32) and a digital qwen3-0.6b decode step (`LAUNCH_DECODE`)
+   are counted on the meta device and run on the card: each measured
+   stream time must be at least 0.95 of its counted bound, and the
+   bucket must launch the 3 `fwht` and 1 `wv_step` per fine iteration
+   it counts (`launches_launch` in the kernels line).
 
 The line before the last is a JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -186,9 +195,6 @@ import sys
 import time
 from pathlib import Path
 
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
-F32_FLOPS = 67e12                # H100 SXM float32 rate outside tensor cores
-BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor-core rate
 C_DEPLOY = 1 << 18               # the deploy's bucket size (columns)
 SEED = 0                         # weights, kernel inputs
 REPS = 20                        # calls per timing
@@ -221,6 +227,7 @@ MESH_STEPS = 20                  # phase 15: the launcher's steps
 MESH_FAIL_AT = 15                # phase 15: the launcher's injected failure
 MESH_SERVE_NEW = 8               # phase 16: new tokens of each engine's generate
 MESH_REQUESTS = 4                # phase 16: requests through the batch_mesh scheduler
+LAUNCH_DECODE = (16, 4096)       # phase 17: the decode step's batch and cache length
 
 
 def _nvidia_smi() -> str:
@@ -278,12 +285,15 @@ def _time_ms(fn) -> tuple[float, float]:
     return statistics.median(per_replay), stream
 
 
-def _bound(bytes_moved: float, flops: float, rate: float = F32_FLOPS) -> tuple[float, str]:
-    """Least ms for the work: bytes at the memory rate or operations at
-    `rate`, whichever is larger, and which of the two it is."""
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / rate * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def _bound(bytes_moved: float, flops: dict[str, float]) -> tuple[float, str]:
+    """Least ms for the work (a kernel's `work()`, or bytes and FLOPs by
+    dtype class): bytes at the card's memory rate or operations at each
+    class's rate (`launch.roofline`'s H100 SXM constants), whichever is
+    larger, and which of the two it is."""
+    from repro_torch.launch import roofline
+
+    s, by = roofline.bound_s(bytes_moved, flops)
+    return s * 1e3, by
 
 
 def phase_fwht(n: int, gen, c: int = C_DEPLOY, x=None) -> dict:
@@ -309,7 +319,7 @@ def phase_fwht(n: int, gen, c: int = C_DEPLOY, x=None) -> dict:
     lib = torch.matmul(x, h)
     torch.cuda.synchronize()
     err_lib = (lib - want).abs().max().item()
-    bound, by = _bound(8.0 * c * n, c * n * math.log2(n))
+    bound, by = _bound(*ops.work(c, n))
     ms, ms_s = _time_ms(lambda: ops.fwht(x))
     plain, plain_s = _time_ms(lambda: ref.fwht(x))
     lib_ms, lib_s = _time_ms(lambda: torch.matmul(x, h))
@@ -366,8 +376,7 @@ def _wv_case(args, p) -> dict:
     err = (got[0] - want[0]).abs().max().item()
     if not err <= 1e-5:
         raise AssertionError(f"wv_step C={c} N={n} ternary={ternary}: g off by {err}")
-    read = (25 if ternary else 29) * c * n      # dev_mag unread when ternary
-    bound, by = _bound(read + 17.0 * c * n, 30.0 * c * n)
+    bound, by = _bound(*ops.work(c, n, ternary))
     ms, ms_s = _time_ms(lambda: ops.wv_cell_update(*args, p))
     plain, plain_s = _time_ms(lambda: ref.wv_cell_update(*args, p))
     return dict(
@@ -654,10 +663,7 @@ def _vmm_case(w, cfg, tokens: int, tiles: int, raw: bool, gen, case: str,
                                what=f"{case} ADC on")
     xt = x.reshape(b, tiles, r).transpose(0, 1)[:, None].contiguous()  # (T, 1, B, R)
     dt = d[:tiles]                                            # (T, S, R, M)
-    macs = b * tiles * r * m * s
-    bound, by = _bound(4.0 * (x.numel() + 2 * dt.numel() + nz.numel() + b * m),
-                       2.0 * macs if raw else 6.0 * macs,
-                       F32_FLOPS if raw else BF16_FLOPS)
+    bound, by = _bound(*ops.work(b, tiles, s, r, m, binary=not raw))
     ms, ms_s = _time_ms(lambda: kern(cfg.adc_bits, kern_nz))
     plain_ms, plain_s = _time_ms(lambda: plain(cfg.adc_bits, nz))
     lib_ms, lib_s = _time_ms(lambda: torch.matmul(xt, dt))
@@ -869,10 +875,9 @@ def phase_serve_breakdown(serve: dict, gen) -> dict:
         xps.append(torch.nn.functional.pad(planes, (0, pad)).reshape(
             -1, w.n_tiles * w.tile_rows))
 
-    kernel_bytes = sum(4.0 * (xp.numel() + 2 * w.g_pos.numel() + nz.numel()
-                              + xp.shape[0] * w.n_outputs)
-                       for w, xp, nz in zip(leaves, xps, noises))
-    kernel_bound_ms = kernel_bytes / HBM_BYTES_PER_S * 1e3
+    kernel_bytes = sum(vmm_ops.work(xp.shape[0], *w.g_pos.shape)[0]
+                       for w, xp in zip(leaves, xps))
+    kernel_bound_ms = _bound(kernel_bytes, {})[0]
 
     def kernels():
         return [vmm_ops.acim_vmm_tiled(
@@ -909,7 +914,7 @@ def phase_serve_breakdown(serve: dict, gen) -> dict:
     kern_ms = times[f"acim_vmm kernel ({len(leaves)} launches)"][0]
     print(f"  acim_vmm kernel ({len(leaves)} launches): {kern_ms:.4f} device ms against a "
           f"byte bound of {kernel_bound_ms:.4f} ms ({kernel_bytes / 1e6:.1f} MB at "
-          f"{HBM_BYTES_PER_S / 1e12} TB/s): {kernel_bound_ms / kern_ms:.1%} of it")
+          f"3.35 TB/s): {kernel_bound_ms / kern_ms:.1%} of it")
     return dict(kernel_ms=kern_ms, kernel_bound_ms=kernel_bound_ms, whole_ms=whole[0])
 
 def _host_ms(fn, reps: int = 3) -> float:
@@ -1747,7 +1752,7 @@ def phase_train(layers: int) -> dict:
             return torch.autograd.grad(loss, (hh, ee))
 
     head_ms, _ = _time_ms(head_ce)
-    head_bound, head_by = _bound(0.0, 6.0 * tokens * cfg.d_model * cfg.vocab_size)
+    head_bound, head_by = _bound(0.0, {"f32": 6.0 * tokens * cfg.d_model * cfg.vocab_size})
     last5 = statistics.mean(losses[-5:])
     print(f"train qwen3-0.6b layers={layers} d_model={cfg.d_model} q_dim={cfg.q_dim} "
           f"d_ff={cfg.d_ff} vocab={cfg.vocab_size} tied head, bf16 params, float32 AdamW "
@@ -2818,8 +2823,9 @@ def phase_mesh_serve(smi: str, gen) -> dict:
     """Phase 16: deploy and serve on a device mesh, a (1, 1) ("data",
     "model") mesh over the world of one that phase 15 runs in.
     qwen3-0.6b at full width, 1 layer, is deployed by HARP with `mesh=`
-    and without: conductances and report (every field and the health
-    tree) bitwise equal, one host sync each, 3 `fwht` and 1 `wv_step`
+    and without, deterministic algorithms off: conductances and report
+    (every field and the health tree, whose per-tile sums run in a fixed
+    order) bitwise equal, one host sync each, 3 `fwht` and 1 `wv_step`
     launches per bucket-iteration on the mesh path, and each of the mesh
     deploy's buckets sliced to its rank's block and its packed g and
     stats gathered over the mesh (one `all_gather_axes` per bucket).  The deployment is
@@ -2835,8 +2841,6 @@ def phase_mesh_serve(smi: str, gen) -> dict:
     `repro_torch.launch.program`'s real mode, and `fwht`, `wv_step` and
     `acim_vmm_tiled` on the mesh path's own operands (w_down's first fine
     iteration; the mesh executor's local w_gate tiles at decode)."""
-    import warnings
-
     import torch
 
     from repro_torch.cim import CIMConfig, CIMExecutor
@@ -2872,18 +2876,14 @@ def phase_mesh_serve(smi: str, gen) -> dict:
         pipeline.all_gather_axes = counted_gather
         pipeline.reset_counters()
         t0 = time.perf_counter()
-        # The health tree's per-tile sums are an `index_add`, whose CUDA
-        # atomics sum in arrival order unless deterministic algorithms
-        # are on: two deploys agree bitwise only under them.
-        with warnings.catch_warnings():
-            warnings.simplefilter("ignore")
-            torch.use_deterministic_algorithms(True, warn_only=True)
-            try:
-                (model, report), dbg, where = _sync_counted(
-                    lambda: deploy_arrays(key, params, wv, device="cuda", mesh=m))
-            finally:
-                torch.use_deterministic_algorithms(False)
-                pipeline.all_gather_axes = real_gather
+        # Without deterministic algorithms: the health tree's per-tile
+        # sums run in a fixed order on the card (`obs.health.
+        # tile_reduce_fixed`), so two deploys agree bitwise as they are.
+        try:
+            (model, report), dbg, where = _sync_counted(
+                lambda: deploy_arrays(key, params, wv, device="cuda", mesh=m))
+        finally:
+            pipeline.all_gather_axes = real_gather
         torch.cuda.synchronize()
         deploys[name] = dict(model=model, report=report, wall=time.perf_counter() - t0,
                              syncs=(pipeline.host_sync_count(), dbg, where),
@@ -3012,6 +3012,119 @@ def phase_mesh_serve(smi: str, gen) -> dict:
                 deploy_wall=(dm["wall"], plain["wall"]), step_ms=step_ms)
 
 
+def phase_launch(smi: str) -> dict:
+    """Phase 17: the launch tools against the card.  `launch.dryrun`
+    counts qwen3-0.6b's train_4k and decode_32k cells on the meta device
+    on the production pod, and `launch.program --dryrun` programming
+    `C_DEPLOY` columns; `launch.report` renders the three rows.  Then two
+    steps the card runs whole are counted by the same `WorkCounter` at
+    the same shapes on the meta device, and run on the card: one HARP
+    `program_columns` bucket of `C_DEPLOY` x 32 cells with per-column
+    keys (phase 6's case; its 3 `fwht` and 1 `wv_step` launches per fine
+    iteration counted) and one digital qwen3-0.6b decode step (full
+    depth, `LAUNCH_DECODE` batch and cache).  Each is timed eagerly
+    (stream ms, CUDA events around the call, median of 3 after a warm
+    call) beside its counted bound: bytes at 3.35 TB/s or FLOPs at each
+    dtype class's rate.  A time below 0.95 of its bound fails the phase:
+    the count would say the card beat its own roofline."""
+    import torch
+
+    from repro_torch.configs import get_config, input_specs
+    from repro_torch.configs.registry import ShapeSpec, materialize_inputs
+    from repro_torch.core import WVConfig, WVMethod, program_columns, rng
+    from repro_torch.kernels.acim_vmm import ops as vmm_ops
+    from repro_torch.kernels.fwht import ops as fwht_ops
+    from repro_torch.kernels.wv_step import ops as wv_ops
+    from repro_torch.launch import dryrun, program, report
+    from repro_torch.models import init_params
+    from repro_torch.serving import make_decode_step
+
+    t_phase = time.perf_counter()
+    out_dir = str(Path("build") / "chip_smoke_dryrun")
+    pod = dryrun.MESHES["pod16x16"]
+    rows = [dryrun.run_cell("qwen3-0.6b", shape, pod, "pod16x16", out_dir)
+            for shape in ("train_4k", "decode_32k")]
+    rows.append(program.run_dryrun("harp", C_DEPLOY, out_dir))
+    print(report.HEADER)
+    for r in rows:
+        print(report.fmt_row(r))
+    t_dry = time.perf_counter() - t_phase
+
+    cases = {}
+    # One bucket of the deploy, as phase 6 times its iterations.
+    wv = WVConfig(method=WVMethod.HARP)
+
+    def bucket_args(device):
+        key = rng.PRNGKey(3, device=device)
+        if device == "meta":
+            targets = torch.empty((C_DEPLOY, 32), device="meta")
+        else:
+            targets = torch.floor(rng.uniform(key, (C_DEPLOY, 32)) * 8.0)
+        return key, targets, torch.arange(C_DEPLOY, device=device)
+
+    def bucket(key, targets, col_ids):
+        return program_columns(key, targets, wv, col_ids=col_ids)
+
+    # A digital decode step of the whole model at a batch and cache the
+    # card holds.
+    cfg = get_config("qwen3-0.6b")
+    b, s = LAUNCH_DECODE
+    spec = ShapeSpec("decode", "decode", s, b)
+    step = make_decode_step(cfg)
+
+    def decode_args(device):
+        inputs = (input_specs(cfg, spec) if device == "meta"
+                  else materialize_inputs(cfg, spec, device=device))
+        return init_params(SEED, cfg, device=device), inputs["cache"], inputs["batch"]
+
+    for name, fn, make in (("program_columns bucket C=2^18", bucket, bucket_args),
+                           (f"qwen3-0.6b decode step B={b} S={s}", step, decode_args)):
+        wc = dryrun.count(fn, make("meta"))
+        bound_ms, by = _bound(wc.bytes, wc.flops)
+        args = make("cuda")
+        torch.cuda.synchronize()
+        fwht_ops.launches = wv_ops.launches = 0
+        vmm_ops.launches = vmm_ops.launches_single = 0
+        with torch.no_grad():
+            fn(*args)
+            _, ms = _stream_ms(lambda: fn(*args))
+        launched = {"fwht": fwht_ops.launches, "wv_step": wv_ops.launches,
+                    "acim_vmm_tiled": vmm_ops.launches, "acim_vmm": vmm_ops.launches_single}
+        calls = {k: v["calls"] for k, v in wc.kernels.items()}
+        cases[name] = dict(bytes=wc.bytes, flops=dict(wc.flops), bound_ms=bound_ms,
+                           bound_by=by, stream_ms=ms, kernel_calls=calls,
+                           launches=launched, peak_bytes=wc.peak_bytes)
+        flops = ", ".join(f"{c} {f:.4e}" for c, f in wc.flops.items()) or "none"
+        print(f"  {name}: counted {wc.bytes:.6e} bytes, FLOPs {flops}, kernels {calls}, "
+              f"peak {wc.peak_bytes / 2**30:.2f} GiB; bound {bound_ms:.4f} ms ({by}); "
+              f"measured {ms:.4f} stream ms = {bound_ms / ms:.1%} of it ({smi}); "
+              f"launched {launched} in the 4 calls")
+        del args
+        torch.cuda.empty_cache()
+    # Each case ran 4 times (a warm call and 3 timed): the bucket launches
+    # exactly 4x HARP's kernels and no analog leaf, the digital decode
+    # step launches no kernel of the port.
+    bucket_case = cases["program_columns bucket C=2^18"]
+    want = {"fwht": 3 * wv.max_fine_iters, "wv_step": wv.max_fine_iters}
+    want_launched = dict({k: 4 * v for k, v in want.items()}, acim_vmm_tiled=0, acim_vmm=0)
+    if bucket_case["kernel_calls"] != want or bucket_case["launches"] != want_launched:
+        raise AssertionError(f"program_columns bucket: counted {bucket_case['kernel_calls']}, "
+                             f"launched {bucket_case['launches']} in 4 calls; HARP runs "
+                             f"{want} per call")
+    for name, c in cases.items():
+        if c is not bucket_case and (c["kernel_calls"] or any(c["launches"].values())):
+            raise AssertionError(f"{name}: counted {c['kernel_calls']}, launched "
+                                 f"{c['launches']}; a digital step runs no kernel of the port")
+    for name, c in cases.items():
+        if c["stream_ms"] < 0.95 * c["bound_ms"]:
+            raise AssertionError(f"{name}: measured {c['stream_ms']:.4f} ms is below 0.95 of "
+                                 f"its counted bound {c['bound_ms']:.4f} ms: the count is wrong")
+    wall = time.perf_counter() - t_phase
+    print(f"  phase wall time {wall:.1f} s (dry-run counts {t_dry:.1f} s)")
+    launches = {k: sum(c["launches"][k] for c in cases.values()) for k in want_launched}
+    return dict(rows=rows, cases=cases, launches=launches, wall=wall)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=3,
@@ -3120,6 +3233,9 @@ def main() -> int:
     finally:
         if started:
             dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    stamp("launch tools phase")
+    launch = phase_launch(smi)
     stamp("done")
 
     main_fwht, main_wv = k[("fwht", 32)], k[("wv_step", 32, True)]
@@ -3173,6 +3289,8 @@ def main() -> int:
             {k: r[k] for k in ("case", "ms", "plain_ms", "bound_ms", "bound_by",
                                "library_ms", "max_abs_err")}
             for r in fams["kcases"][entry["name"]]]
+        # Phase 17: the program_columns bucket counted against the card.
+        entry["launches_launch"] = launch["launches"][entry["name"]]
         # Phase 16: the mesh deploy, and the kernel on its operands.
         entry["launches_mesh"] = mserve["launches"][entry["name"]]
         entry["mesh_case"] = [
@@ -3203,6 +3321,7 @@ def main() -> int:
             launches_registry=reg["launches"][name],
             launches_families=fams["launches"][name],
             launches_mesh=mserve["launches"][name],
+            launches_launch=launch["launches"][name],
             mesh_case=[dict(case=c, ms=o["ms"], plain_ms=o["plain_ms"],
                             bound_ms=o["bound_ms"], bound_by=o["bound_by"],
                             library_ms=o["library_ms"], max_abs_err=o["max_abs_err"],

@@ -24,8 +24,10 @@ import torch
 
 __all__ = [
     "hadamard_matrix",
+    "is_hadamard",
     "fwht",
     "encode",
+    "decode_unnormalized",
     "decode",
 ]
 
@@ -48,6 +50,15 @@ def hadamard_matrix(n: int, dtype=torch.float32, device="cuda") -> torch.Tensor:
     carries the common-mode offset after decoding, eq. (7)).
     """
     return torch.as_tensor(_hadamard_np(n), dtype=dtype, device=device)
+
+
+def is_hadamard(a: np.ndarray) -> bool:
+    """Check A in {-1,+1}^{NxN} with A^T A = N I (the Prop. 2.1 bound)."""
+    a = np.asarray(a)
+    n = a.shape[0]
+    if a.shape != (n, n) or not np.all(np.isin(a, (-1.0, 1.0))):
+        return False
+    return np.array_equal(a.T @ a, n * np.eye(n))
 
 
 def fwht(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
@@ -78,6 +89,12 @@ def fwht(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
 def encode(w: torch.Tensor, axis: int = -1) -> torch.Tensor:
     """Analog Hadamard column read (noiseless part): y = H w."""
     return fwht(w, axis=axis)
+
+
+def decode_unnormalized(y: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """H^T y without the 1/N: HARP's ternary aggregation applies its
+    threshold tau_w to the unnormalized sum (eq. 10)."""
+    return fwht(y, axis=axis)
 
 
 def decode(y: torch.Tensor, axis: int = -1) -> torch.Tensor:

@@ -67,6 +67,7 @@ __all__ = [
     "sample_d2d_for",
     "sample_fault_for",
     "host_fetch",
+    "donates",
     "compile_count",
     "host_sync_count",
     "reset_counters",
@@ -100,6 +101,14 @@ def reset_counters() -> None:
 def host_fetch(tree):
     """The pipeline's single device->host transfer point (counted)."""
     return obs_metrics.fetch(tree, counter=SYNC_COUNTER)
+
+
+def donates() -> bool:
+    """Whether `get_program_fn` donates its targets / d2d arguments: the
+    reference's XLA entry does off the CPU, so its callers copy a buffer
+    they keep.  Eager PyTorch has no donation and the port's entry never
+    frees or reuses an argument, so never."""
+    return False
 
 
 def bucket_sizes(

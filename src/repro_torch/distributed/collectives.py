@@ -19,6 +19,11 @@ So, as in Megatron-LM's tensor-parallel regions:
 A plain `dist.all_reduce` has no backward, and
 `torch.distributed.nn.functional.all_reduce` sums the gradient too,
 which would count the one loss once per rank.
+
+Each collective adds its result bytes, per op type and mesh axis, to the
+open counters (`obs.work`).  On a `launch.mesh.AbstractMesh`
+(meta tensors only) that is all it does: every rank's block is rank 0's,
+so a reduction keeps its shape and a gather concatenates copies of it.
 """
 
 from __future__ import annotations
@@ -29,16 +34,30 @@ from typing import Sequence
 import torch
 import torch.distributed as dist
 
-from repro_torch.launch.mesh import axis_sizes
+from repro_torch.launch.mesh import AbstractMesh, axis_sizes
+from repro_torch.obs import work
 
 __all__ = ["all_reduce_axes", "all_gather_axes", "block_of", "reduce_from", "mean_over",
            "copy_to"]
 
 
+def _abstract(x: torch.Tensor, mesh) -> bool:
+    """Whether `mesh` is an `AbstractMesh`, which takes meta tensors only."""
+    if not isinstance(mesh, AbstractMesh):
+        return False
+    if x.device.type != "meta":
+        raise ValueError(f"a collective on an AbstractMesh takes meta tensors, "
+                         f"got {x.device}")
+    return True
+
+
 def all_reduce_axes(x: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
     """`x` summed in place over each of the mesh axes in turn."""
+    abstract = _abstract(x, mesh)
     for a in axes:
-        dist.all_reduce(x, group=mesh.get_group(a))
+        if not abstract:
+            dist.all_reduce(x, group=mesh.get_group(a))
+        work.add_collective("all-reduce", a, x.numel() * x.element_size())
     return x
 
 
@@ -48,10 +67,16 @@ def all_gather_axes(x: torch.Tensor, mesh, axes: Sequence[str], dim: int = 0
     `dim` in block order (`axes` major first, as `block_of` numbers
     them): gathered over the minor axis first.  A concatenation, so
     every value is the rank's own, bit for bit."""
+    abstract = _abstract(x, mesh)
     for a in reversed(tuple(axes)):
         x = x.contiguous()
-        parts = [torch.empty_like(x) for _ in range(axis_sizes(mesh)[a])]
-        dist.all_gather(parts, x, group=mesh.get_group(a))
+        n = axis_sizes(mesh)[a]
+        if abstract:
+            parts = [x] * n
+        else:
+            parts = [torch.empty_like(x) for _ in range(n)]
+            dist.all_gather(parts, x, group=mesh.get_group(a))
+        work.add_collective("all-gather", a, n * x.numel() * x.element_size())
         x = torch.cat(parts, dim=dim)
     return x
 

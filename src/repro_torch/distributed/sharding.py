@@ -19,7 +19,9 @@ Stored shards are `DTensor`s.  `shard_tree` cuts each rank's block out
 of a full tensor that every rank holds (no communication); `gather`
 rebuilds full tensors from the blocks with `all_gather` over the mesh's
 groups, minor axis first, so that only the collectives both NCCL and
-gloo provide are used.
+gloo provide are used.  On a `launch.mesh.AbstractMesh` a stored shard
+is an `AbstractShard` (rank 0's block, a meta tensor), which the mesh
+paths read as they read a DTensor (`from_local` makes either).
 """
 
 from __future__ import annotations
@@ -29,14 +31,15 @@ import re
 from typing import Any, Sequence
 
 import torch
-import torch.distributed as dist
 
 from repro_torch import pytree
+from repro_torch.distributed.collectives import all_gather_axes
+from repro_torch.launch.mesh import AbstractMesh
 
 __all__ = ["PartitionSpec", "P", "ShardingRules", "spec_for_path",
-           "shard_params_tree", "NamedSharding", "is_dtensor", "local",
-           "shard_tree", "sharding_of", "sharding_leaves", "gather", "gather_tree",
-           "local_block", "split_axes"]
+           "shard_params_tree", "NamedSharding", "AbstractShard", "contiguous_strides",
+           "from_local", "is_dtensor", "local", "shard_tree", "sharding_of",
+           "sharding_leaves", "gather", "gather_tree", "local_block", "split_axes"]
 
 
 class PartitionSpec(tuple):
@@ -112,14 +115,11 @@ class NamedSharding:
     def shard(self, x: torch.Tensor):
         """The DTensor holding this rank's block of the full tensor `x`
         (every rank holds the same `x`; no communication)."""
-        from torch.distributed.tensor import DTensor
-
         if len(self.spec) > x.ndim:
             raise ValueError(f"spec {self.spec} has more entries than a {x.ndim}-d tensor")
         placements = self.placements
-        return DTensor.from_local(local_block(x, self.mesh, placements), self.mesh,
-                                  placements, run_check=False, shape=x.shape,
-                                  stride=x.stride())
+        return from_local(local_block(x, self.mesh, placements), self.mesh, placements,
+                          x.shape, x.stride())
 
 
 def shard_params_tree(params: Any, mesh, rules: ShardingRules) -> Any:
@@ -130,10 +130,58 @@ def shard_params_tree(params: Any, mesh, rules: ShardingRules) -> Any:
         for path, leaf in pytree.leaves_with_path(params)])
 
 
+class AbstractShard:
+    """A tensor stored on an `AbstractMesh`: its global shape, its
+    placements and `to_local()`, the block this process holds as rank 0
+    (a meta tensor)."""
+
+    def __init__(self, block: torch.Tensor, mesh: AbstractMesh, placements, shape):
+        self._block = block
+        self.device_mesh = mesh
+        self.placements = tuple(placements)
+        self.shape = torch.Size(shape)
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    def to_local(self) -> torch.Tensor:
+        return self._block
+
+    def stride(self) -> tuple[int, ...]:
+        return contiguous_strides(self.shape)
+
+    def __repr__(self) -> str:
+        return (f"AbstractShard(shape={tuple(self.shape)}, dtype={self._block.dtype}, "
+                f"placements={self.placements}, local={tuple(self._block.shape)})")
+
+
+def contiguous_strides(shape) -> tuple[int, ...]:
+    """The strides of a contiguous tensor of `shape` (computed: making a
+    tensor for them would count as memory under a `WorkCounter`)."""
+    out, n = [], 1
+    for d in reversed(tuple(shape)):
+        out.append(n)
+        n *= d
+    return tuple(reversed(out))
+
+
+def from_local(block: torch.Tensor, mesh, placements, shape, stride=None):
+    """`block`, this rank's, as the stored shard of a tensor of `shape`
+    laid out by `placements`: a DTensor on a `DeviceMesh`, an
+    `AbstractShard` on an `AbstractMesh`.  No communication."""
+    if isinstance(mesh, AbstractMesh):
+        return AbstractShard(block, mesh, placements, shape)
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(block, mesh, placements, run_check=False, shape=shape,
+                              stride=stride)
+
+
 def is_dtensor(x) -> bool:
     from torch.distributed.tensor import DTensor
 
-    return isinstance(x, DTensor)
+    return isinstance(x, (DTensor, AbstractShard))
 
 
 def local(x):
@@ -194,10 +242,7 @@ def gather(x, keep: tuple[str, ...] = ()) -> torch.Tensor:
                 raise ValueError(f"cannot keep {names[i]!r} split: it shares dim "
                                  f"{pl.dim} with {shared}")
             continue
-        t = t.contiguous()
-        parts = [torch.empty_like(t) for _ in range(mesh.size(i))]
-        dist.all_gather(parts, t, group=mesh.get_group(i))
-        t = torch.cat(parts, dim=pl.dim)
+        t = all_gather_axes(t, mesh, (names[i],), dim=pl.dim)
     return t
 
 

@@ -1,8 +1,11 @@
 """Public wrappers for the bit-sliced ACiM VMM kernel.
 
 A CPU tensor goes to the plain version (`ref.py`); a CUDA tensor
-launches the CUDA kernel (`csrc/acim_vmm.cu`) or raises.  Both entry
-points launch the same kernel: `acim_vmm` is its one-tile view.
+launches the CUDA kernel (`csrc/acim_vmm.cu`) or raises; a meta tensor
+(shapes only) gets an empty result and launches nothing.  Both entry
+points launch the same kernel: `acim_vmm` is its one-tile view.  `work`
+is a call's bytes and operations, which a launch and a meta call add to
+the open counters (`obs.work`).
 `launches` counts calls of `acim_vmm_tiled` (the serving path's entry)
 that launched the kernel and `launches_single` those of `acim_vmm`;
 nothing else touches them.
@@ -24,6 +27,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.obs import work as work_hook
+
 from . import ref
 
 launches = 0
@@ -31,6 +36,31 @@ launches_single = 0
 
 MAX_SPLIT_TILES = 384   # csrc/acim_vmm.cu kMaxSplitTiles
 _SMS: dict = {}
+
+
+def work(b: int, n_tiles: int, s: int, r: int, m: int, *, binary: bool = True,
+         noise: bool = True) -> tuple[float, dict[str, float]]:
+    """(bytes, FLOPs by dtype class) of one call: x (B, T*R), the two
+    (T, S, R, M) conductance planes and the (T, S, B, M) noise read once
+    and the (B, M) result written once, all float32; and the products.
+    A chunk of x that is all 0 or 1 (DAC planes) runs as 3 exact bf16
+    tensor-core products per multiply-add, other x as one float32 FMA.
+    The kernel picks per chunk from the values, which a meta tensor does
+    not have: a meta call and a launch count the DAC-plane route, the
+    one `cim.mvm.cim_matmul` feeds, whose time at the card's rates is
+    the smaller of the two (a bound either way)."""
+    macs = b * n_tiles * r * m * s
+    nbytes = 4.0 * (b * n_tiles * r + 2 * n_tiles * s * r * m
+                    + (n_tiles * s * b * m if noise else 0) + b * m)
+    return nbytes, ({"bf16": 6.0 * macs} if binary else {"f32": 2.0 * macs})
+
+
+def _meta(name: str, x, g_pos, g_neg, noise) -> torch.Tensor:
+    """The result of a call on meta tensors: checked as a launch is, its
+    work added to the open counters, nothing launched."""
+    b, n_tiles, s, r, m = _check(x, g_pos, g_neg, noise)
+    work_hook.add_kernel(name, *work(b, n_tiles, s, r, m, noise=noise is not None))
+    return torch.empty((b, m), dtype=torch.float32, device=x.device)
 
 
 def _plan(b: int, n_tiles: int, m: int, sms: int = 132) -> bool:
@@ -68,8 +98,10 @@ def acim_vmm(x, g_pos, g_neg, *, bc: int, adc_bits: int | None,
         raise ValueError(f"acim_vmm takes (S, K, M) planes, got {tuple(g_pos.shape)}")
     s, k, m = g_pos.shape
     nz = None if noise is None else noise.reshape(1, *noise.shape)
-    out = _launch(x, g_pos.reshape(1, s, k, m), g_neg.reshape(1, s, k, m), nz,
-                  bc, adc_bits, full_scale)
+    planes = (g_pos.reshape(1, s, k, m), g_neg.reshape(1, s, k, m))
+    if x.device.type == "meta":
+        return _meta("acim_vmm", x, *planes, nz)
+    out = _launch("acim_vmm", x, *planes, nz, bc, adc_bits, full_scale)
     if out.numel():
         launches_single += 1
     return out
@@ -88,14 +120,16 @@ def acim_vmm_tiled(x, g_pos, g_neg, *, bc: int, adc_bits: int | None,
     if x.device.type == "cpu":
         return ref.acim_vmm_tiled(x, g_pos, g_neg, bc, adc_bits, full_scale,
                                   noise)
-    out = _launch(x, g_pos, g_neg, noise, bc, adc_bits, full_scale)
+    if x.device.type == "meta":
+        return _meta("acim_vmm_tiled", x, g_pos, g_neg, noise)
+    out = _launch("acim_vmm_tiled", x, g_pos, g_neg, noise, bc, adc_bits, full_scale)
     if out.numel():
         launches += 1
     return out
 
 
-def _launch(x, g_pos, g_neg, noise, bc, adc_bits, full_scale) -> torch.Tensor:
-    """Check the operands and launch the CUDA kernel on the current stream."""
+def _check(x, g_pos, g_neg, noise) -> tuple[int, int, int, int, int]:
+    """The kernel's operand rules; returns (B, T, S, R, M)."""
     if g_pos.ndim != 4 or g_neg.shape != g_pos.shape:
         raise ValueError(f"acim_vmm kernel takes (T, S, R, M) planes, got "
                          f"{tuple(g_pos.shape)} and {tuple(g_neg.shape)}")
@@ -111,13 +145,22 @@ def _launch(x, g_pos, g_neg, noise, bc, adc_bits, full_scale) -> torch.Tensor:
                              f"{(n_tiles, s, b, m)}")
         ops["noise"] = noise
     for name, t in ops.items():
-        if not t.is_cuda or t.device != x.device:
-            raise ValueError(f"acim_vmm kernel: {name} must be a CUDA tensor "
-                             f"on {x.device}, got {t.device}")
+        if t.device != x.device:
+            raise ValueError(f"acim_vmm kernel: {name} must be on {x.device}, "
+                             f"got {t.device}")
         if t.dtype != torch.float32:
             raise TypeError(f"acim_vmm kernel: {name} must be float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"acim_vmm kernel: {name} must be contiguous")
+    return b, n_tiles, s, r, m
+
+
+def _launch(name: str, x, g_pos, g_neg, noise, bc, adc_bits, full_scale) -> torch.Tensor:
+    """Check the operands and launch the CUDA kernel on the current stream;
+    `name` is the entry whose work the launch adds to the open counters."""
+    if not x.is_cuda:
+        raise ValueError(f"acim_vmm kernel needs CUDA tensors, got {x.device}")
+    b, n_tiles, s, r, m = _check(x, g_pos, g_neg, noise)
     if adc_bits is None:
         bits, w, lo, hi, code_max = -1, 1.0, 0.0, 0.0, 0.0
     else:
@@ -146,4 +189,5 @@ def _launch(x, g_pos, g_neg, noise, bc, adc_bits, full_scale) -> torch.Tensor:
         )
     if rc != 0:
         raise RuntimeError(f"acim_vmm kernel launch failed: cudaError {rc}")
+    work_hook.add_kernel(name, *work(b, n_tiles, s, r, m, noise=noise is not None))
     return out

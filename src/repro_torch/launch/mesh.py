@@ -17,7 +17,9 @@ race for between concurrent processes, no file left behind.
 `AbstractMesh` is a mesh's shape without devices (as
 `jax.sharding.AbstractMesh` is): the layout functions of
 `launch.shardings` take it, so specs can be computed for a mesh that
-this process is not part of.
+this process is not part of.  A program can also run on it with meta
+tensors (`launch.dryrun`): this process then plays rank 0, each rank's
+block is rank 0's, and the collectives only count their bytes.
 """
 
 from __future__ import annotations
@@ -47,6 +49,21 @@ class AbstractMesh:
     def __post_init__(self):
         if len(self.shape) != len(self.mesh_dim_names):
             raise ValueError(f"{len(self.shape)} sizes for axes {self.mesh_dim_names}")
+
+    # The parts of `DeviceMesh`'s interface that the port's mesh paths
+    # read, with this process as rank 0.
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    def size(self, mesh_dim: int | None = None) -> int:
+        return math.prod(self.shape) if mesh_dim is None else self.shape[mesh_dim]
+
+    def get_local_rank(self, mesh_dim: str | int | None = None) -> int:
+        return 0
+
+    def get_coordinate(self) -> list[int]:
+        return [0] * len(self.shape)
 
 
 def axis_sizes(mesh) -> dict[str, int]:

@@ -83,15 +83,16 @@ def batch_rows(batch: dict, mesh) -> tuple[dict, tuple[str, ...]]:
 def rows_like(x: torch.Tensor, ref, dim: int = 0):
     """The rank's rows `x` (its block of `ref`'s rows, on `x`'s dim
     `dim`) as a DTensor whose `dim` is laid out as `ref`'s dim 0."""
-    from torch.distributed.tensor import DTensor, Shard
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.distributed.sharding import contiguous_strides, from_local
 
     placements = tuple(Shard(dim) if isinstance(pl, Shard) and pl.dim == 0 else pl
                        for pl in ref.placements)
     shape = list(x.shape)
     shape[dim] = ref.shape[0]
-    return DTensor.from_local(x, ref.device_mesh, placements, run_check=False,
-                              shape=torch.Size(shape),
-                              stride=torch.empty(shape, device="meta").stride())
+    return from_local(x, ref.device_mesh, placements, torch.Size(shape),
+                      contiguous_strides(shape))
 
 
 def row_token_ids(ref, n_rows: int, seq: int):

@@ -39,7 +39,7 @@ from typing import Any
 import torch
 
 from repro_torch.distributed.collectives import all_gather_axes, block_of
-from repro_torch.distributed.sharding import is_dtensor, local, split_axes
+from repro_torch.distributed.sharding import from_local, is_dtensor, local, split_axes
 
 from . import rwkv6 as rwkv_mod
 from . import ssm as ssm_mod
@@ -84,10 +84,7 @@ def _like(new: torch.Tensor, old):
     `old` leaves `new` plain."""
     if not is_dtensor(old):
         return new
-    from torch.distributed.tensor import DTensor
-
-    return DTensor.from_local(new, old.device_mesh, old.placements, run_check=False,
-                              shape=old.shape, stride=old.stride())
+    return from_local(new, old.device_mesh, old.placements, old.shape, old.stride())
 
 
 def _slot_owner(leaf, axis: int, slot: int) -> tuple[tuple[str, ...], int, int, bool]:

@@ -122,9 +122,12 @@ def _cross_layer_params(gen, cfg: ModelConfig, n_layers: int, device) -> dict[st
 def init_params(seed: int, cfg: ModelConfig, device="cuda") -> dict[str, Any]:
     """The parameter tree of `cfg`'s family, from `seed` (the layer
     stacks drawn first, so a dense config's values are those the port
-    drew before the other families were added)."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(seed))
+    drew before the other families were added).  On the ``meta`` device
+    nothing is drawn: the tree has its shapes and dtypes only."""
+    gen = None
+    if torch.device(device).type != "meta":
+        gen = torch.Generator(device=device)
+        gen.manual_seed(int(seed))
     d = cfg.d_model
     params: dict[str, Any] = {
         "final_norm": torch.zeros((d,), dtype=_F32, device=device),

@@ -1,8 +1,9 @@
 """Telemetry of the port: counters, digests, trace spans, the energy
 ledger and per-tile health maps.
 
-* `obs.metrics`: the host-side counter registry and `fetch`, the
-  counted device->host chokepoint (one call = one copy);
+* `obs.metrics`: device-side `MetricAccumulator`s, the host-side
+  counter registry and `fetch`, the counted device->host chokepoint
+  (one call = one copy);
 * `obs.digest`: fixed-bucket streaming histograms (`StreamingDigest`,
   accumulated on the device or the host) and the `digests` registry;
 * `obs.trace`: host-side Chrome/Perfetto trace-event spans;
@@ -17,18 +18,21 @@ ledger and per-tile health maps.
   report.
 
 The rule: spans and charges are host-side only, and device values reach
-the host only on syncs the hot path already makes.  `reset_all()`
-starts a fresh run in-process.
+the host only on syncs the hot path already makes.  `disabled()`
+silences span and ledger recording (the contract counters keep
+counting); `reset_all()` starts a fresh run in-process.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 from . import digest, health, ledger, metrics, trace
 from .digest import StreamingDigest, digests, rank_quantile
 from .health import SLOPolicy, SLORule, fleet_status
 from .health import health as health_registry
 from .ledger import charge
-from .metrics import registry
+from .metrics import MetricAccumulator, registry
 from .trace import instant, span, tracer
 
 __all__ = [
@@ -38,6 +42,7 @@ __all__ = [
     "metrics",
     "trace",
     "charge",
+    "MetricAccumulator",
     "StreamingDigest",
     "SLOPolicy",
     "SLORule",
@@ -49,8 +54,21 @@ __all__ = [
     "instant",
     "span",
     "tracer",
+    "disabled",
     "reset_all",
 ]
+
+
+@contextlib.contextmanager
+def disabled():
+    """Silence span and ledger recording inside the block.  Only the
+    verbosity is gated: the registry's counters (host-sync and launch
+    contracts) keep counting."""
+    old = trace._set_enabled(False)
+    try:
+        yield
+    finally:
+        trace._set_enabled(old)
 
 
 def reset_all() -> None:

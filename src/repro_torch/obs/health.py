@@ -1,7 +1,9 @@
 """Per-tile health maps and declarative fleet SLO rules.
 
 * **Device-side reduction**: `tile_reduce` / `tile_deploy_stats` sum
-  per-column values into per-tile bins with one `index_add` each.  The
+  per-column values into per-tile bins: one `index_add` each on the
+  CPU, and on the card a sum in a fixed order (`tile_reduce_fixed`),
+  so that two equal deploys give the same bits.  The
   tile axis is small (columns / columns_per_tile), so the per-tile sums
   ride a host fetch the path already makes: the deploy's one fetch
   (`DeployReport.collect`) and the scrub's per-epoch health fetch.  The
@@ -30,6 +32,7 @@ import torch
 
 __all__ = [
     "tile_reduce",
+    "tile_reduce_fixed",
     "tile_deploy_stats",
     "HealthRegistry",
     "health",
@@ -40,19 +43,52 @@ __all__ = [
 ]
 
 
-def tile_reduce(values: torch.Tensor, tile_inv, num_tiles: int) -> torch.Tensor:
+def tile_reduce(values: torch.Tensor, tile_inv, num_tiles: int,
+                width: int | None = None) -> torch.Tensor:
     """Segment-sum per-column `values` into `num_tiles` tile bins.
 
     `tile_inv` is the column -> tile-slot index: host numpy, which
-    crosses to the device once, or a tensor already there.  The only
-    device work is one `index_add`.
+    crosses to the device once, or a tensor already there.  On the CPU
+    the device work is one `index_add`.  On the card an `index_add` is
+    a float atomic per column, which sums in arrival order, so two equal
+    calls could differ in the last bits: there the sums go through
+    `tile_reduce_fixed`, in a fixed order.  That needs `width`, the most
+    columns of any tile, from the host: pass it with a device index (it
+    is read off a host index), so that no sync is needed to size it.
     """
     v = values.to(torch.float32).reshape(-1)
     if not isinstance(tile_inv, torch.Tensor):
-        tile_inv = torch.as_tensor(np.asarray(tile_inv, np.int64))
+        host = np.asarray(tile_inv, np.int64)
+        if width is None and v.device.type != "cpu":
+            width = int(np.bincount(host, minlength=1).max()) if host.size else 0
+        tile_inv = torch.as_tensor(host)
     idx = tile_inv.to(v.device, non_blocking=True)
-    return torch.zeros((int(num_tiles),), dtype=torch.float32,
-                       device=v.device).index_add(0, idx, v)
+    if v.device.type == "cpu":
+        return torch.zeros((int(num_tiles),), dtype=torch.float32,
+                           device=v.device).index_add(0, idx, v)
+    if width is None:
+        raise ValueError("tile_reduce on the card needs `width` (the most columns "
+                         "of any tile) with a device index: sizing it would sync")
+    return tile_reduce_fixed(v, idx, num_tiles, width)
+
+
+def tile_reduce_fixed(values: torch.Tensor, idx: torch.Tensor, num_tiles: int,
+                      width: int) -> torch.Tensor:
+    """`tile_reduce` in a fixed order, with no atomics: each tile's
+    columns, in column order, are placed in one row of a (num_tiles,
+    width) zero-padded matrix (a stable sort of the index and one
+    scatter to distinct places), and each row is summed.  The same
+    inputs give the same bits on every call."""
+    v = values.to(torch.float32).reshape(-1)
+    n_tiles = int(num_tiles)
+    order = torch.argsort(idx, stable=True)
+    tiles = idx[order]
+    first = torch.searchsorted(tiles, torch.arange(n_tiles, dtype=tiles.dtype,
+                                                   device=tiles.device))
+    slot = torch.arange(tiles.numel(), device=tiles.device) - first[tiles]
+    padded = torch.zeros((n_tiles, int(width)), dtype=torch.float32, device=v.device)
+    padded[tiles, slot] = v[order]
+    return torch.sum(padded, dim=1)
 
 
 def _uid_run(uids: np.ndarray) -> int | None:
@@ -127,20 +163,21 @@ def tile_deploy_stats(
     tile_ids, inv, columns = _tile_index(
         [np.asarray(uids_map[n], np.int64) for n in names], int(columns_per_tile), device)
     n_tiles = int(tile_ids.shape[0])
+    width = int(columns.max()) if columns.size else 0
 
     def cat(attr):
         return torch.cat([getattr(stats_map[n], attr).reshape(-1) for n in names])
 
     tree = {
-        "gave_up_cells": tile_reduce(cat("gave_up"), inv, n_tiles),
-        "retry_pulses": tile_reduce(cat("retry_pulses"), inv, n_tiles),
-        "write_pulses": tile_reduce(cat("write_pulses"), inv, n_tiles),
-        "verify_reads": tile_reduce(cat("reads"), inv, n_tiles),
-        "err2_sum": tile_reduce(cat("rms_error_lsb") ** 2, inv, n_tiles),
+        "gave_up_cells": tile_reduce(cat("gave_up"), inv, n_tiles, width),
+        "retry_pulses": tile_reduce(cat("retry_pulses"), inv, n_tiles, width),
+        "write_pulses": tile_reduce(cat("write_pulses"), inv, n_tiles, width),
+        "verify_reads": tile_reduce(cat("reads"), inv, n_tiles, width),
+        "err2_sum": tile_reduce(cat("rms_error_lsb") ** 2, inv, n_tiles, width),
     }
     for metric, leaf_vecs in (extra_columns or {}).items():
         tree[metric] = tile_reduce(
-            torch.cat([leaf_vecs[n].reshape(-1) for n in names]), inv, n_tiles)
+            torch.cat([leaf_vecs[n].reshape(-1) for n in names]), inv, n_tiles, width)
     tree["columns"] = columns
     return tile_ids, tree
 

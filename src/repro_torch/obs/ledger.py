@@ -20,7 +20,9 @@ import dataclasses
 
 from . import trace
 
-__all__ = ["EnergyLedger", "ledger", "charge", "summary", "reset"]
+__all__ = ["EnergyLedger", "ledger", "charge", "summary", "reset", "FIELDS"]
+
+FIELDS = ("energy_pj", "latency_ns", "reads", "tokens")
 
 
 @dataclasses.dataclass
@@ -53,7 +55,10 @@ class EnergyLedger:
         tokens: float = 0.0,
         **annotations,
     ) -> None:
-        """Attribute modeled cost to `phase` (and mirror into the trace)."""
+        """Attribute modeled cost to `phase` (and mirror into the trace);
+        nothing inside `obs.disabled()`."""
+        if not trace.is_enabled():
+            return
         tot = self._phases.get(phase)
         if tot is None:
             tot = self._phases[phase] = PhaseTotals()

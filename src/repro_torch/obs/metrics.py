@@ -1,6 +1,9 @@
-"""Host-side counter registry and the counted device->host fetch.
+"""Device-side metric scalars, the host-side counter registry and the
+counted device->host fetch.
 
-Named float counters (`pipeline.compiles`, `pipeline.host_syncs`,
+`MetricAccumulator` holds named float32 0-d tensors on the device; `inc`
+returns a new accumulator, so a loop can carry it and fetch it once at
+a sync it already makes.  Named float counters (`pipeline.compiles`, `pipeline.host_syncs`,
 `serve.decode_tokens`, `lifetime.health_syncs`, ...) that the contracts
 are asserted on; they are not gated on the obs enable flag.  `fetch(tree, counter=...)`
 is the counted transfer chokepoint: one call = one device->host copy =
@@ -9,14 +12,58 @@ one bump of its counter.
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Iterable, Mapping
 
 import torch
 
 from repro_torch import pytree
 
-__all__ = ["MetricRegistry", "registry", "fetch", "inc", "value", "snapshot",
-           "reset"]
+__all__ = ["MetricAccumulator", "MetricRegistry", "registry", "fetch", "inc", "value",
+           "snapshot", "reset"]
+
+
+class MetricAccumulator:
+    """An immutable set of named device-side metric scalars.
+
+    Functional, as the reference's pytree is: `inc` and `merge` return a
+    NEW accumulator and leave this one as it is.  The values stay float32
+    0-d tensors on their device until a `fetch`.
+    """
+
+    def __init__(self, values: Mapping[str, torch.Tensor]):
+        self._values = dict(values)
+
+    @classmethod
+    def zeros(cls, names: Iterable[str], device="cuda") -> "MetricAccumulator":
+        return cls({n: torch.zeros((), dtype=torch.float32, device=device)
+                    for n in names})
+
+    @property
+    def names(self) -> tuple[str, ...]:
+        return tuple(sorted(self._values))
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        return self._values[name]
+
+    def inc(self, name: str, delta) -> "MetricAccumulator":
+        """New accumulator with `delta` (a number or a tensor on the same
+        device) added to `name`; no host sync."""
+        vals = dict(self._values)
+        old = vals[name]
+        vals[name] = old + torch.as_tensor(delta, dtype=torch.float32, device=old.device)
+        return MetricAccumulator(vals)
+
+    def merge(self, other: "MetricAccumulator") -> "MetricAccumulator":
+        if self.names != other.names:
+            raise ValueError(f"cannot merge accumulators of {self.names} and {other.names}")
+        return MetricAccumulator({n: self._values[n] + other._values[n]
+                                  for n in self._values})
+
+    def as_dict(self) -> dict[str, torch.Tensor]:
+        return dict(self._values)
+
+    def __repr__(self) -> str:
+        return f"MetricAccumulator({self._values!r})"
 
 
 class MetricRegistry:

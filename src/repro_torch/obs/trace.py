@@ -21,6 +21,9 @@ Span events are "ph": "X" (complete) events with `ts`/`dur` in
 microseconds; `instant` emits "ph": "i" markers; ledger charges ride
 along as "cat": "ledger" instants (`obs.ledger`); `counter` emits
 "ph": "C" samples.
+
+Recording honours the global enable flag (`obs.disabled()`): inside it
+no event is kept, while `span` still times its body and yields its args.
 """
 
 from __future__ import annotations
@@ -39,7 +42,23 @@ __all__ = [
     "export",
     "reset",
     "events",
+    "is_enabled",
 ]
+
+# The global enable flag, shared by the tracer and the ledger.  The
+# contract counters (`obs.metrics` registry) are not gated on it.
+_ENABLED = True
+
+
+def _set_enabled(flag: bool) -> bool:
+    global _ENABLED
+    old = _ENABLED
+    _ENABLED = bool(flag)
+    return old
+
+
+def is_enabled() -> bool:
+    return _ENABLED
 
 class Tracer:
     """An append-only list of Chrome trace events on one wall clock."""
@@ -56,7 +75,8 @@ class Tracer:
 
     # ----------------------------------------------------------- record
     def _append(self, ev: dict) -> None:
-        self._events.append(ev)
+        if _ENABLED:
+            self._events.append(ev)
 
     @contextlib.contextmanager
     def span(self, name: str, cat: str = "phase", **args: Any) -> Iterator[dict]:

@@ -17,7 +17,10 @@ from .converter import (  # noqa: F401
     sar_quantize,
     sar_read,
 )
-from .noise import sample_read_fields  # noqa: F401
+from .noise import (  # noqa: F401
+    sample_read_fields,
+    sample_token_read_noise,
+)
 from .readout import (  # noqa: F401
     ReadResult,
     decode_magnitude,

@@ -27,7 +27,13 @@ import torch
 
 from repro_torch import pytree
 from repro_torch.distributed.collectives import all_reduce_axes
-from repro_torch.distributed.sharding import is_dtensor, local, local_block, gather
+from repro_torch.distributed.sharding import (
+    from_local,
+    gather,
+    is_dtensor,
+    local,
+    local_block,
+)
 from repro_torch.models import ModelConfig
 from repro_torch.models.act_sharding import batch_rows
 from repro_torch.models.moe import ep_axes, is_expert_stack
@@ -124,11 +130,8 @@ def make_train_step(
 
 
 def _like(new: torch.Tensor, old):
-    """`new`, this rank's block, as a DTensor laid out like `old`."""
-    from torch.distributed.tensor import DTensor
-
-    return DTensor.from_local(new, old.device_mesh, old.placements, run_check=False,
-                              shape=old.shape, stride=old.stride())
+    """`new`, this rank's block, stored as `old` is."""
+    return from_local(new, old.device_mesh, old.placements, old.shape, old.stride())
 
 
 def _microbatches(batch: dict, mesh, grad_accum: int) -> list[dict]:

@@ -1,7 +1,9 @@
 """The port stands alone: no file of `src/repro_torch/`, `chip_smoke.py` or
 the port's examples (`examples/torch_*.py`) imports JAX or the JAX
 reference package, and every module of the port imports here, where
-there is no CUDA toolkit and no card."""
+there is no CUDA toolkit and no card.  And the port is whole: every
+public name of each reference module is in the port's module of the same
+name, which both files' syntax trees show (neither is imported)."""
 
 import ast
 import importlib
@@ -11,6 +13,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
+REFERENCE = ROOT / "src" / "repro"
 FILES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
          + sorted((ROOT / "examples").glob("torch_*.py")))
 FORBIDDEN = ("jax", "jaxlib", "repro")
@@ -87,8 +90,17 @@ MESH_SLICE_MODULES = (
 )
 
 
+# The modules of the launch-tools slice (the dry run counted on the meta
+# device, the roofline terms, their report, `program.py --dryrun`).
+LAUNCH_SLICE_MODULES = (
+    "launch/dryrun.py", "launch/roofline.py", "launch/report.py", "launch/program.py",
+    "obs/work.py",
+)
+
+
 @pytest.mark.parametrize("rel", SLICE_MODULES + FAULT_SLICE_MODULES + TRAIN_SLICE_MODULES
-                         + FAMILY_SLICE_MODULES + MESH_SLICE_MODULES)
+                         + FAMILY_SLICE_MODULES + MESH_SLICE_MODULES
+                         + LAUNCH_SLICE_MODULES)
 def test_slice_module_is_checked(rel):
     assert PORT / rel in FILES
 
@@ -99,3 +111,55 @@ def test_port_example_is_checked():
 
 def test_train_example_is_checked():
     assert ROOT / "examples" / "torch_train_lm.py" in FILES
+
+
+# Reference files and names with no counterpart in the port, and why.
+# The Pallas kernels: a CUDA kernel replaces each, behind the `ops.py` /
+# `ref.py` pair of its package.
+NOT_PORTED_FILES = {
+    "kernels/fwht/fwht.py": "kernels/csrc/fwht.cu",
+    "kernels/wv_step/wv_step.py": "kernels/csrc/wv_step.cu",
+    "kernels/acim_vmm/acim_vmm.py": "kernels/csrc/acim_vmm.cu",
+}
+NOT_PORTED_NAMES = {
+    # They read XLA's artifacts (the HLO text, `cost_analysis()`), which
+    # PyTorch does not make: the port counts its ops instead.
+    "launch/roofline.py": {"collective_bytes_from_hlo", "summarize_cost_analysis"},
+}
+REFERENCE_FILES = sorted(p.relative_to(REFERENCE).as_posix()
+                         for p in REFERENCE.rglob("*.py"))
+
+
+def _public_names(path: pathlib.Path) -> set[str]:
+    """Public top-level defs, classes and assigned names; for a package's
+    `__init__.py`, also the names it re-exports from its own modules."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    names = set()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names.update(t.id for t in node.targets if isinstance(t, ast.Name))
+        elif isinstance(node, ast.AnnAssign) and isinstance(node.target, ast.Name):
+            names.add(node.target.id)
+        elif (isinstance(node, ast.ImportFrom) and path.name == "__init__.py"
+              and (node.level > 0 or (node.module or "").startswith("repro"))):
+            names.update(a.asname or a.name for a in node.names)
+    return {n for n in names if not n.startswith("_")}
+
+
+@pytest.mark.parametrize("rel", REFERENCE_FILES)
+def test_port_has_every_public_name_of_the_reference(rel):
+    if rel in NOT_PORTED_FILES:
+        assert (PORT / NOT_PORTED_FILES[rel]).exists()
+        return
+    assert (PORT / rel).exists(), f"the port has no {rel}"
+    missing = (_public_names(REFERENCE / rel) - _public_names(PORT / rel)
+               - NOT_PORTED_NAMES.get(rel, set()))
+    assert not missing, f"{rel}: the port lacks {sorted(missing)}"
+
+
+def test_not_ported_names_are_the_references():
+    for rel, names in NOT_PORTED_NAMES.items():
+        assert names <= _public_names(REFERENCE / rel)
+        assert not names & _public_names(PORT / rel)

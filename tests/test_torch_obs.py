@@ -12,7 +12,9 @@ Tolerances: digest counts, under/over counts, min and max exactly
 running total within rtol 1e-6 (float32 sums in another order);
 quantiles and summaries exactly (they are functions of the counts),
 but for the mean (the total over the count), within rtol 1e-6;
-`tile_reduce` within rtol 1e-6 (float32 segment sums);
+`tile_reduce` within rtol 1e-6 (float32 segment sums), and so its
+fixed-order form (the card's, `tile_reduce_fixed`), which is also
+bitwise equal to itself across calls;
 `tile_deploy_stats` on carried stats: tile ids and integer-valued sums
 exact, err2_sum within rtol 1e-6; a port deploy's counters and ledger
 rows equal to its own report, its tile maps' sums within rtol 1e-6 of
@@ -169,6 +171,27 @@ def test_tile_reduce_matches_reference():
     want = np.asarray(jobs.health.tile_reduce(jnp.asarray(v), inv, 7))
     got = obs.health.tile_reduce(torch.from_numpy(v), inv, 7).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-6)
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "scattered"])
+def test_tile_reduce_fixed_order_matches_reference_and_repeats(layout):
+    """The card's fixed-order tile sums (no atomics: the same inputs give
+    the same bits) against the reference's `segment_sum`, on the column
+    -> tile index of a contiguous deploy (ascending runs, tiles of up to
+    64 columns) and on a scattered one (fault-aware placement)."""
+    rs = np.random.RandomState(11)
+    v = (rs.rand(5000) * 100).astype(np.float32)
+    if layout == "contiguous":
+        inv = np.repeat(np.arange(79), 64)[:5000]
+    else:
+        inv = rs.randint(0, 79, 5000)
+    width = int(np.bincount(inv).max())
+    want = np.asarray(jobs.health.tile_reduce(jnp.asarray(v), inv, 79))
+    idx = torch.from_numpy(inv.astype(np.int64))
+    got = obs.health.tile_reduce_fixed(torch.from_numpy(v), idx, 79, width)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6)
+    again = obs.health.tile_reduce_fixed(torch.from_numpy(v), idx, 79, width)
+    assert torch.equal(got, again)
 
 
 def test_health_registry_matches_reference():
@@ -503,3 +526,42 @@ def test_report_and_dashboard_render_like_reference(tmp_path, capsys):
     assert report.main([str(tmp_path / "missing.json")]) == 1
     assert dashboard.main([str(tmp_path / "missing.json")]) == 1
     assert "error" in capsys.readouterr().err and out.out == ""
+
+
+def test_disabled_silences_spans_and_ledger_as_the_reference():
+    """`obs.disabled()`: no span, instant, counter event or ledger charge
+    is kept inside it, in either package; the counter registry still
+    counts; `trace.is_enabled` says which, and the flag is restored."""
+    got = {}
+    for name, pkg in (("jax", jobs), ("port", obs)):
+        pkg.reset_all()
+        with pkg.trace.span("phase.a"):
+            pass
+        with pkg.disabled():
+            assert not pkg.trace.is_enabled()
+            with pkg.trace.span("phase.hidden") as args:
+                args["x"] = 1
+            pkg.trace.instant("hidden")
+            pkg.ledger.charge("hidden", energy_pj=1.0)
+            pkg.metrics.inc("still.counted")
+        assert pkg.trace.is_enabled()
+        got[name] = ([e["name"] for e in pkg.trace.events()], pkg.ledger.summary(),
+                     pkg.metrics.value("still.counted"))
+        pkg.reset_all()
+    assert got["port"] == got["jax"] == (["phase.a"], {}, 1.0)
+    assert obs.ledger.FIELDS == jobs.ledger.FIELDS
+
+
+def test_metric_accumulator_matches_the_reference():
+    a = obs.MetricAccumulator.zeros(["tokens", "reads"], device="cpu")
+    b = a.inc("tokens", 2.0).inc("reads", torch.tensor(3.5))
+    ja = jobs.MetricAccumulator.zeros(["tokens", "reads"])
+    jb = ja.inc("tokens", 2.0).inc("reads", jnp.asarray(3.5))
+    assert a["tokens"].item() == 0.0            # inc returns a new accumulator
+    assert b.names == jb.names == ("reads", "tokens")
+    merged, jmerged = b.merge(b), jb.merge(jb)
+    assert ({k: v.item() for k, v in merged.as_dict().items()}
+            == {k: float(v) for k, v in jmerged.as_dict().items()})
+    assert merged["reads"].dtype == torch.float32
+    with pytest.raises(ValueError):
+        b.merge(obs.MetricAccumulator.zeros(["tokens"], device="cpu"))

@@ -194,3 +194,29 @@ def test_quantize_pack_unpack_bitwise(dtype, shape):
     np.testing.assert_array_equal(
         unpack_columns(torch.from_numpy(noisy), tlay).numpy(),
         np.asarray(j_unpack(jnp.asarray(noisy), jlay)))
+
+
+@pytest.mark.parametrize("n", [1, 4, 32])
+def test_hadamard_check_and_unnormalized_decode_match(n):
+    """`is_hadamard` on the Sylvester matrix and on a broken copy, and
+    `decode_unnormalized` bitwise against the reference's."""
+    from repro.core import hadamard as jhad
+    from repro_torch.core import hadamard as thad
+
+    h = thad.hadamard_matrix(n, device="cpu").numpy()
+    bad = h.copy()
+    bad[0, 0] = 0.0
+    for a in (h, bad, h[:, : max(n // 2, 1)]):
+        assert thad.is_hadamard(a) == jhad.is_hadamard(a)
+    assert thad.is_hadamard(h) and not thad.is_hadamard(bad)
+    y = np.random.RandomState(n).randn(3, n).astype(np.float32)
+    np.testing.assert_array_equal(thad.decode_unnormalized(torch.from_numpy(y)).numpy(),
+                                  np.asarray(jhad.decode_unnormalized(jnp.asarray(y))))
+
+
+def test_readout_package_exports_the_references_names():
+    import repro.readout as jro
+    import repro_torch.readout as tro
+
+    assert tro.sample_token_read_noise is t_noise.sample_token_read_noise
+    assert {n for n in dir(jro) if not n.startswith("_")} <= set(dir(tro))

@@ -30,6 +30,11 @@
     * every rank's stored blocks have the shapes their specs say and are
       the blocks of the full tensors that JAX's layout puts there;
     * elastic restore onto a (4, 2) mesh holds within rtol 1e-6;
+    * the collectives of that train step, counted by
+      `launch.roofline.WorkCounter` (result bytes and calls per op type,
+      bytes per mesh axis), equal on every rank the count of the same
+      step run with meta tensors on an `AbstractMesh((2, 4))`, the
+      dry run's way;
     * with ``grad_accum=2`` (the reference's microbatches) the same
       against both single-device steps; the sharded eval step's metrics
       within rtol 1e-5 of the plain one's;
@@ -95,16 +100,20 @@ from repro.training import init_train_state as j_init_train_state
 from repro.training import make_train_step as j_make_train_step
 from repro_torch import pytree
 from repro_torch.configs import ARCHS, ShapeSpec, get_smoke_config, input_specs
+from repro_torch.distributed.sharding import shard_tree
+from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import AbstractMesh
 from repro_torch.launch.shardings import (
     batch_sharding,
     cache_sharding,
     param_rules,
+    shard_batch,
     state_sharding,
 )
+from repro_torch.models import ModelConfig
 from repro_torch.models.decoding import init_cache
 from repro_torch.optim import AdamWConfig
-from repro_torch.training import init_train_state
+from repro_torch.training import init_train_state, make_train_step
 
 from test_torch_scheduler import DIGITAL_ATOL, _assert_tokens_follow
 
@@ -390,6 +399,27 @@ def test_sharded_train_step_matches_reference(job):
         assert o["train"]["loss"] == t["loss"]
         for a, b in zip(pytree.leaves(o["train"]["params"]), pytree.leaves(t["params"])):
             np.testing.assert_array_equal(a, b)
+
+
+def test_dry_run_counts_the_collectives_the_ranks_make(job):
+    """The train step on an `AbstractMesh((2, 4))` with meta tensors (as
+    `launch.dryrun` runs a cell) counts the collectives, op for op and
+    axis for axis, that the real step on 8 gloo ranks makes."""
+    outs, _ = job
+    cfg = ModelConfig(**worker.DENSE_CFG, dtype=torch.float32)
+    opt = AdamWConfig(lr_peak=1e-3)
+    mesh = AbstractMesh((2, 4), ("data", "model"))
+    state = init_train_state(0, cfg, opt, device="meta")
+    state = shard_tree(state, state_sharding(mesh, state, cfg))
+    batch = {"tokens": torch.empty((worker.BATCH, 16), dtype=torch.int32, device="meta"),
+             "targets": torch.empty((worker.BATCH, 16), dtype=torch.int32, device="meta"),
+             "mask": torch.empty((worker.BATCH, 16), device="meta")}
+    wc = dryrun.count(make_train_step(cfg, opt, mesh, total_steps=10),
+                      (state, shard_batch(mesh, batch, worker.BATCH)))
+    assert wc.collectives["all-gather"]["count"] > 0 and wc.collectives["all-reduce"]["count"] > 0
+    for r, o in enumerate(outs):
+        assert o["train"]["collectives"] == wc.collectives, r
+        assert o["train"]["collective_axes"] == dict(wc.collective_axes), r
 
 
 def test_sharded_train_step_matches_single_device_port(job):

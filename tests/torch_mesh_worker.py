@@ -37,7 +37,7 @@ from repro_torch.distributed.sharding import (
     local_block,
     shard_tree,
 )
-from repro_torch.launch import program
+from repro_torch.launch import program, roofline
 from repro_torch.launch.mesh import _mesh, axis_sizes, make_debug_mesh
 from repro_torch.launch.shardings import shard_batch, state_sharding
 from repro_torch.models import ModelConfig, decode_step, forward, init_params, prefill
@@ -217,7 +217,8 @@ def _train(mesh, t: dict, workdir: str) -> dict:
     bad_blocks = _check_blocks(st, sh, mesh)
     specs = {path: tuple(x.spec) for path, x in pytree.leaves_with_path(sh)}
     sb = shard_batch(mesh, batch, BATCH)
-    s1, m1 = make_train_step(cfg, opt, mesh, total_steps=10)(st, sb)
+    with roofline.WorkCounter() as wc:
+        s1, m1 = make_train_step(cfg, opt, mesh, total_steps=10)(st, sb)
     bad_blocks += _check_blocks(s1, sh, mesh)
     full = gather_tree(s1)
     s2, m2 = make_train_step(cfg, opt, mesh, total_steps=10, grad_accum=2)(st, sb)
@@ -247,6 +248,7 @@ def _train(mesh, t: dict, workdir: str) -> dict:
                 bad_blocks=bad_blocks, **plain,
                 accum_loss=float(m2["loss"]), accum_params=_np(gather_tree(s2.params)),
                 eval={k: float(v) for k, v in ev.items()},
+                collectives=wc.collectives, collective_axes=dict(wc.collective_axes),
                 restored_step=r_step, bad_elastic=bad_elastic, elastic_rel=elastic,
                 elastic_mesh=tuple(pytree.leaves(rec)[0].device_mesh.shape))
 
