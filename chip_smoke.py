@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py [--layers 3] [--train-layers 2]
+    python3 chip_smoke.py [--layers 2] [--train-layers 2] [--peak-of DIR]
 
 Run from the repository root on a machine with an NVIDIA H100 and the
 CUDA toolkit.  Phases, each of which fails the run:
@@ -41,8 +41,8 @@ CUDA toolkit.  Phases, each of which fails the run:
    digital forward on the same arrays (logits, and greedy tokens over 8
    decode steps), then with `examples/serve_lm.py`'s defaults (batch 4,
    prompt 32, 32 new tokens, DAC 6 / ADC 10 bits, read noise 0.2 LSB) in
-   bf16: exactly 21 `acim_vmm_tiled` launches (7 analog leaves x 3
-   layers) per prefill and per decode step, tokens in the vocabulary,
+   bf16: exactly 7 `acim_vmm_tiled` launches per layer (7 analog
+   leaves; 14 at the default 2 layers) per prefill and per decode step, tokens in the vocabulary,
    logits finite; then the parts of one decode step (noise draws, DAC
    streams, the kernel beside its byte bound, attention, the rest) timed
    on their own;
@@ -57,8 +57,8 @@ CUDA toolkit.  Phases, each of which fails the run:
    admission.  Each stream must complete every request with tokens in
    the vocabulary, build no step function after warmup, make one host
    sync per decode step (the dispatches run under CUDA sync debugging
-   set to "error"), launch exactly 21 `acim_vmm_tiled` per admission,
-   chunk and decode step, and serve ``decode_steps * n_slots +
+   set to "error"), launch exactly 7 `acim_vmm_tiled` per layer per
+   admission, chunk and decode step, and serve ``decode_steps * n_slots +
    prefill_tokens`` tokens; every scrub epoch must launch `fwht`, and
    the run must re-program a column (`wv_step` launches).  Times and
    launches per dispatch are read from the scheduler's `obs` spans.  Then
@@ -84,7 +84,7 @@ CUDA toolkit.  Phases, each of which fails the run:
    pass's targets, `acim_vmm_tiled` on a remapped leaf, the fault
    sampler and the spare ranking on the card against the CPU.  The
    remap arm is served (ideal converters against its digital forward;
-   then prefill + 8 noisy decode steps of 21 launches each), scrubbed
+   then prefill + 8 noisy decode steps of 7 launches per layer), scrubbed
    for two epochs (no inactive row flagged or re-programmed, `wv_step`
    on the re-program), and converter offsets are calibrated over the
    w_down leaf's columns (residual spread under 0.1 of the offsets');
@@ -177,7 +177,23 @@ CUDA toolkit.  Phases, each of which fails the run:
    are counted on the meta device and run on the card: each measured
    stream time must be at least 0.95 of its counted bound, and the
    bucket must launch the 3 `fwht` and 1 `wv_step` per fine iteration
-   it counts (`launches_launch` in the kernels line).
+   it counts (`launches_launch` in the kernels line);
+18. rematerialisation: qwen3-0.6b at full width and depth (`get_config`:
+   28 layers, `remat=True`, bf16 params, float32 AdamW moments) takes one
+   warm-up and `REMAT_STEPS` train steps at batch 4 x seq 4096 on
+   `SyntheticLM(151936, seq 4096, batch 4, seed 0)`: each loss finite,
+   each step's host ms (ending in a sync), tokens/s and the peak of
+   `torch.cuda.max_memory_allocated()`, which must stay under the card's
+   80 GB.  Then at 2 layers, batch 1 x seq 4096, one gradient with
+   `cfg.remat` False and one with True under deterministic algorithms
+   (scoped to them): the loss and every gradient leaf bitwise equal, and
+   both peaks printed.  A no-grad `forward` of that batch runs no
+   checkpoint (`models.remat.checkpoints`) and gives the grad-enabled
+   forward's logits bitwise.  The phase launches none of the port's
+   kernels (`launches_remat` in the kernels line, all 0).
+   ``python3 chip_smoke.py --peak-of DIR`` runs only the pair, with the
+   port in ``DIR/src`` (a `git archive` of another commit), and prints
+   its peaks.
 
 The line before the last is a JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -228,6 +244,9 @@ MESH_FAIL_AT = 15                # phase 15: the launcher's injected failure
 MESH_SERVE_NEW = 8               # phase 16: new tokens of each engine's generate
 MESH_REQUESTS = 4                # phase 16: requests through the batch_mesh scheduler
 LAUNCH_DECODE = (16, 4096)       # phase 17: the decode step's batch and cache length
+REMAT_RUN = (4, 4096)            # phase 18: full-depth qwen3-0.6b's batch and seq
+REMAT_STEPS = 3                  # phase 18: timed steps after one warm-up step
+REMAT_PAIR = (2, 1, 4096)        # phase 18: layers, batch, seq of the remat on / off pair
 
 
 def _nvidia_smi() -> str:
@@ -3125,12 +3144,184 @@ def phase_launch(smi: str) -> dict:
     return dict(rows=rows, cases=cases, launches=launches, wall=wall)
 
 
+def _remat_pair(layers: int, b: int, s: int) -> dict:
+    """Phase 18's pair: qwen3-0.6b at full width, `layers` deep, random
+    params from `SEED`, one gradient (`training._grads_of`, the train
+    step's) of the batch `SyntheticLM(151936, seq s, batch b, seed 0)`
+    gives at step 0, with `cfg.remat` False and then True, under
+    `torch.use_deterministic_algorithms(True, warn_only=True)` scoped to
+    them.  For each: (loss, grads, peak GiB of `max_memory_allocated`);
+    and the memory held before, the config, params, batch and warnings."""
+    import warnings
+
+    import torch
+
+    from repro_torch.configs.qwen3_0_6b import CONFIG
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import init_params
+    from repro_torch.training import _grads_of
+
+    cfg = CONFIG.replace(n_layers=layers)
+    params = init_params(SEED, cfg, device="cuda")
+    batch = SyntheticLM(cfg.vocab_size, s, b, seed=0, device="cuda").global_batch_at(0)
+    batch = batch._asdict()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() / 2**30
+    runs = {}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            for on in (False, True):
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                (loss, _), grads = _grads_of(params, batch, cfg.replace(remat=on))
+                torch.cuda.synchronize()
+                runs[on] = (loss, grads, torch.cuda.max_memory_allocated() / 2**30)
+        finally:
+            torch.use_deterministic_algorithms(False)
+    return dict(runs=runs, held=held, cfg=cfg, params=params, batch=batch,
+                warnings=sorted({str(w.message)[:100] for w in caught}))
+
+
+def phase_remat(smi: str) -> dict:
+    """Phase 18: rematerialisation under autograd.  qwen3-0.6b at full
+    width and depth (`get_config`, `remat=True`, bf16, `AdamWConfig()`)
+    trains one warm-up and `REMAT_STEPS` steps at `REMAT_RUN` on
+    `SyntheticLM(151936, seq 4096, batch 4, seed 0)`: every loss finite,
+    the peak of `max_memory_allocated` under the card's 80 GB.  Then
+    `_remat_pair` at `REMAT_PAIR`: `remat` False and True give the same
+    loss and gradients, bitwise.  Then a no-grad `forward` of the pair's
+    batch (the serving paths' mode) runs no checkpoint and equals the
+    grad-enabled forward's logits bitwise.  The phase's kernel launches
+    are zeroed before it and read after: training launches none."""
+    import torch
+
+    from repro_torch import kernels, pytree
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels.acim_vmm import ops as vmm_ops
+    from repro_torch.kernels.fwht import ops as fwht_ops
+    from repro_torch.kernels.wv_step import ops as wv_ops
+    from repro_torch.launch.roofline import HBM_BYTES
+    from repro_torch.models import forward, remat
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.training import init_train_state, make_train_step
+
+    t_phase = time.perf_counter()
+    fwht_ops.launches = wv_ops.launches = 0
+    vmm_ops.launches = vmm_ops.launches_single = 0
+    cfg = get_config("qwen3-0.6b")
+    opt = AdamWConfig()
+    b, s = REMAT_RUN
+    data = SyntheticLM(cfg.vocab_size, s, b, seed=0, device="cuda")
+    state = init_train_state(SEED, cfg, opt, device="cuda")
+    step = make_train_step(cfg, opt, total_steps=REMAT_STEPS + 1)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    losses, host_ms = [], []
+    ck0 = remat.checkpoints
+    for i in range(REMAT_STEPS + 1):
+        batch = data.global_batch_at(i)._asdict()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    peak_bytes = torch.cuda.max_memory_allocated()
+    per_step = (remat.checkpoints - ck0) // (REMAT_STEPS + 1)
+    timed = host_ms[1:]
+    tok_s = b * s / statistics.mean(timed) * 1e3
+    print(f"remat: qwen3-0.6b layers={cfg.n_layers} remat={cfg.remat} "
+          f"{str(cfg.dtype).removeprefix('torch.')} params, "
+          f"float32 AdamW moments, batch {b} x seq {s} ({b * s} tokens a step), "
+          f"attention chunks {cfg.attn_chunk_q} x {cfg.attn_chunk_kv}")
+    print(f"  losses (warm-up, then {REMAT_STEPS} steps): "
+          + " ".join(f"{x:.4f}" for x in losses))
+    print(f"  step host ms: warm-up {host_ms[0]:.1f}, then "
+          + " ".join(f"{x:.1f}" for x in timed)
+          + f" = {tok_s:.0f} tokens/s; {per_step} checkpoints a step")
+    print(f"  peak {peak_bytes / 2**30:.2f} GiB ({peak_bytes / 1e9:.2f} GB) with "
+          f"{held:.2f} GiB of train state held before ({smi})")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"remat: a loss is not finite: {losses}")
+    if peak_bytes >= HBM_BYTES:
+        raise AssertionError(f"remat: the peak {peak_bytes / 1e9:.2f} GB reaches the "
+                             f"card's {HBM_BYTES / 1e9:.0f} GB")
+    del state, step, m
+    torch.cuda.empty_cache()
+
+    pair = _remat_pair(*REMAT_PAIR)
+    (l0, g0, p0), (l1, g1, p1) = pair["runs"][False], pair["runs"][True]
+    grads_equal = all(torch.equal(a, c) for a, c in
+                      zip(pytree.leaves(g0), pytree.leaves(g1)))
+    loss_equal = torch.equal(l0, l1)
+    layers, pb, ps = REMAT_PAIR
+    print(f"  {layers} layers, batch {pb} x seq {ps}, one gradient under deterministic "
+          f"algorithms: remat False loss {float(l0):.6f} peak {p0:.2f} GiB, remat True "
+          f"loss {float(l1):.6f} peak {p1:.2f} GiB ({pair['held']:.2f} GiB of params "
+          f"held before); loss bitwise {loss_equal}, every gradient leaf bitwise "
+          f"{grads_equal}; warnings {pair['warnings']}")
+    if not (loss_equal and grads_equal):
+        raise AssertionError(f"remat: loss equal {loss_equal}, grads equal {grads_equal}")
+    del g0, g1
+    pcfg = pair["cfg"].replace(remat=True)
+    params, batch = pair["params"], pair["batch"]
+    ck = remat.checkpoints
+    with torch.no_grad():
+        ng_logits = forward(params, batch, pcfg)[0]
+    ng_ck = remat.checkpoints - ck
+    leaves = [p.detach().requires_grad_(True) for p in pytree.leaves(params)]
+    with torch.enable_grad():
+        g_logits = forward(pytree.unflatten(params, leaves), batch, pcfg)[0].detach()
+    g_ck = remat.checkpoints - ck - ng_ck
+    logits_equal = torch.equal(ng_logits, g_logits)
+    print(f"  no-grad forward: {ng_ck} checkpoints, logits bitwise the grad-enabled "
+          f"forward's ({g_ck} checkpoints) {logits_equal}")
+    if ng_ck or not g_ck or not logits_equal:
+        raise AssertionError(f"remat: no-grad checkpoints {ng_ck}, grad-enabled "
+                             f"{g_ck}, logits equal {logits_equal}")
+    del ng_logits, g_logits, leaves, pair, params, batch
+    torch.cuda.empty_cache()
+    launches = kernels.launch_counts()
+    wall = time.perf_counter() - t_phase
+    print(f"  phase wall time {wall:.1f} s; the port's kernels launched: {launches}")
+    if any(launches.values()):
+        raise AssertionError(f"the training path launched kernels: {launches}")
+    return dict(losses=losses, host_ms=host_ms, tokens_per_s=tok_s,
+                peak_gib=peak_bytes / 2**30, pair_peaks=(p0, p1), launches=launches,
+                wall=wall)
+
+
+def peak_of(src: str) -> int:
+    """``--peak-of DIR``: `_remat_pair` with the port in ``DIR/src`` (a
+    checkout or `git archive` of any commit of the port); prints the two
+    peaks as one JSON line."""
+    sys.path.insert(0, str(Path(src).resolve() / "src"))
+    import torch
+
+    import repro_torch
+
+    pair = _remat_pair(*REMAT_PAIR)
+    print(_nvidia_smi())
+    print(json.dumps({"port": str(Path(repro_torch.__file__).parent), "pair": REMAT_PAIR,
+                      "held_gib": pair["held"],
+                      "loss": {str(on): float(r[0]) for on, r in pair["runs"].items()},
+                      "peak_gib": {str(on): r[2] for on, r in pair["runs"].items()},
+                      "device": torch.cuda.get_device_name(0)}))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--layers", type=int, default=3,
+    ap.add_argument("--layers", type=int, default=2,
                     help="qwen3-0.6b depth to deploy (28 = the whole model)")
     ap.add_argument("--train-layers", type=int, default=2,
                     help="qwen3-0.6b depth to train and deploy in phase 11")
+    ap.add_argument("--peak-of", metavar="DIR", default=None,
+                    help="only measure phase 18's remat pair with the port in DIR/src")
     args = ap.parse_args()
     sys.stdout.reconfigure(line_buffering=True)
     t_start = time.perf_counter()
@@ -3143,11 +3334,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if args.peak_of:
+        return peak_of(args.peak_of)
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.kernels import build
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     smi = _nvidia_smi()
     print(f"device: {torch.cuda.get_device_name(0)} (torch {torch.__version__}, "
           f"CUDA {torch.version.cuda})")
@@ -3236,6 +3429,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     stamp("launch tools phase")
     launch = phase_launch(smi)
+    torch.cuda.empty_cache()
+    stamp("remat phase")
+    rem = phase_remat(smi)
     stamp("done")
 
     main_fwht, main_wv = k[("fwht", 32)], k[("wv_step", 32, True)]
@@ -3291,6 +3487,8 @@ def main() -> int:
             for r in fams["kcases"][entry["name"]]]
         # Phase 17: the program_columns bucket counted against the card.
         entry["launches_launch"] = launch["launches"][entry["name"]]
+        # Phase 18: the full-depth remat train steps launch no kernel.
+        entry["launches_remat"] = rem["launches"][entry["name"]]
         # Phase 16: the mesh deploy, and the kernel on its operands.
         entry["launches_mesh"] = mserve["launches"][entry["name"]]
         entry["mesh_case"] = [
@@ -3322,6 +3520,7 @@ def main() -> int:
             launches_families=fams["launches"][name],
             launches_mesh=mserve["launches"][name],
             launches_launch=launch["launches"][name],
+            launches_remat=rem["launches"][name],
             mesh_case=[dict(case=c, ms=o["ms"], plain_ms=o["plain_ms"],
                             bound_ms=o["bound_ms"], bound_by=o["bound_by"],
                             library_ms=o["library_ms"], max_abs_err=o["max_abs_err"],

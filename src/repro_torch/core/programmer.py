@@ -296,6 +296,11 @@ class DeployedModel:
         """Swap in new conductances for one leaf (its views re-tile)."""
         self.arrays[name] = dataclasses.replace(self.arrays[name], g=g)
 
+    @property
+    def num_columns(self) -> int:
+        """Programmed columns over every analog leaf."""
+        return sum(int(a.g.shape[0]) for a in self.arrays.values())
+
 
 @dataclasses.dataclass
 class _LeafPlan:

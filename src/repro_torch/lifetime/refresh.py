@@ -109,6 +109,10 @@ class RefreshOutcome:
     retry_pulses: float = 0.0           # fine pulses burned on them
 
     @property
+    def maintenance_energy_pj(self) -> float:
+        return self.verify_energy_pj + self.program_energy_pj
+
+    @property
     def maintenance_latency_ns(self) -> float:
         return self.verify_latency_ns + self.program_latency_ns
 

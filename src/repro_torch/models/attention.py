@@ -7,12 +7,20 @@ outer loop over query chunks, an inner loop over only the key/value
 chunks inside each chunk's causal (and windowed) footprint, carrying the
 online-softmax state (m, l, acc) in float32.  GQA is computed grouped:
 q is reshaped to (KV, G) head groups, so k/v are never repeated.
+
+Under autograd the (cq x ck) probability tiles are never saved for
+backward (that would keep the O(S^2) matrix): as in the reference, each
+query chunk and, inside it, each kv step is a checkpoint (`remat`), so
+backward recomputes one chunk, then one tile, at a time.  Under
+`torch.no_grad()` the same loops run plainly.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from . import remat
 
 __all__ = ["NEG_INF", "chunked_causal_attention", "cross_attention", "decode_attention"]
 
@@ -50,35 +58,43 @@ def chunked_causal_attention(
     qg = q.reshape(b, s, kv_heads, g, hd)
     dev = q.device
 
+    def kv_step(m, l, acc, qi, kj, vj, qpos, j):
+        s_ij = torch.einsum("bqkgd,bckd->bqkgc", qi, kj.to(_F32)) * scale
+        kpos = j * ck + torch.arange(ck, device=dev)
+        mask = qpos[:, None] >= kpos[None, :]
+        if window > 0:
+            mask &= qpos[:, None] - kpos[None, :] < window
+        s_ij = torch.where(mask[None, :, None, None, :], s_ij, NEG_INF)
+        m_new = torch.maximum(m, torch.amax(s_ij, dim=-1))
+        p = torch.exp(s_ij - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + torch.sum(p, dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bqkgc,bckd->bqkgd", p.to(v.dtype).to(_F32), vj.to(_F32))
+        return m_new, l, acc
+
+    def one_chunk(q_chunk, k_sl, v_sl, i, j_start):
+        qpos = pos_offset + i * cq + torch.arange(cq, device=dev)
+        qi = q_chunk.to(_F32)
+        m = torch.full((b, cq, kv_heads, g), NEG_INF, dtype=_F32, device=dev)
+        l = torch.zeros((b, cq, kv_heads, g), dtype=_F32, device=dev)
+        acc = torch.zeros((b, cq, kv_heads, g, hd), dtype=_F32, device=dev)
+        for n in range(k_sl.shape[1] // ck):
+            m, l, acc = remat.checkpoint(
+                kv_step, m, l, acc, qi, k_sl[:, n * ck:(n + 1) * ck],
+                v_sl[:, n * ck:(n + 1) * ck], qpos, j_start + n)
+        return (acc / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype)
+
     outs = []
     for i in range(nq):
-        qpos = pos_offset + i * cq + torch.arange(cq, device=dev)
         if window > 0:
             j_start = max(0, (pos_offset + i * cq - window) // ck)
         else:
             j_start = 0
         j_end = min(nk, (pos_offset + (i + 1) * cq - 1) // ck + 1)
-        qi = qg[:, i * cq:(i + 1) * cq].to(_F32)
-        m = torch.full((b, cq, kv_heads, g), NEG_INF, dtype=_F32, device=dev)
-        l = torch.zeros((b, cq, kv_heads, g), dtype=_F32, device=dev)
-        acc = torch.zeros((b, cq, kv_heads, g, hd), dtype=_F32, device=dev)
-        for j in range(j_start, j_end):
-            kj = k[:, j * ck:(j + 1) * ck]
-            vj = v[:, j * ck:(j + 1) * ck]
-            s_ij = torch.einsum("bqkgd,bckd->bqkgc", qi, kj.to(_F32)) * scale
-            kpos = j * ck + torch.arange(ck, device=dev)
-            mask = qpos[:, None] >= kpos[None, :]
-            if window > 0:
-                mask &= qpos[:, None] - kpos[None, :] < window
-            s_ij = torch.where(mask[None, :, None, None, :], s_ij, NEG_INF)
-            m_new = torch.maximum(m, torch.amax(s_ij, dim=-1))
-            p = torch.exp(s_ij - m_new[..., None])
-            corr = torch.exp(m - m_new)
-            l = l * corr + torch.sum(p, dim=-1)
-            acc = acc * corr[..., None] + torch.einsum(
-                "bqkgc,bckd->bqkgd", p.to(v.dtype).to(_F32), vj.to(_F32))
-            m = m_new
-        outs.append((acc / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype))
+        outs.append(remat.checkpoint(
+            one_chunk, qg[:, i * cq:(i + 1) * cq], k[:, j_start * ck:j_end * ck],
+            v[:, j_start * ck:j_end * ck], i, j_start))
 
     out = torch.stack(outs, dim=1).reshape(b, s, kv_heads, g, hd)
     return out.reshape(b, s, h, hd)[:, :s_orig]

@@ -40,6 +40,7 @@ from repro_torch.distributed.sharding import gather, is_dtensor
 from .act_sharding import constrain
 from .config import ModelConfig
 from .layers import dense_init
+from .remat import recomputing
 
 __all__ = ["init_moe_params", "moe_block", "record_routing", "ep_axes", "is_expert_stack",
            "params_at_use"]
@@ -72,7 +73,8 @@ def _local_capacity(t_local: int, cfg: ModelConfig) -> int:
 @contextlib.contextmanager
 def record_routing():
     """Collect, in call order, every MoE call's keep mask (T, k) bool:
-    True where a (token, choice) fit its expert's capacity."""
+    True where a (token, choice) fit its expert's capacity.  A backward
+    recompute of a rematerialised layer adds none."""
     log: list[torch.Tensor] = []
     _routing_logs.append(log)
     try:
@@ -104,8 +106,9 @@ def _moe_local(x, router_w, w_gate, w_up, w_down, *, cfg: ModelConfig, axis=None
     ranks = torch.cumsum(flat, dim=0) - flat                      # exclusive
     rank_te = torch.sum(ranks * flat, dim=-1).reshape(t, k)
     keep = rank_te < cap
-    for log in _routing_logs:
-        log.append(keep)
+    if not recomputing():      # one mask per forward call, not per recompute
+        for log in _routing_logs:
+            log.append(keep)
 
     # (E_local, cap) token-index buffer of this rank's experts; dropped
     # choices and other ranks' experts land in the spill slot

@@ -14,7 +14,10 @@ matmuls per chunk and a cross-chunk state carried from chunk to chunk.
 The reference groups the chunks 16 at a time (for its backward's memory)
 and pads the last group with identity chunks (zero k, v and log-decay);
 the port walks the same padded chunk sequence.  An identity chunk leaves
-the state as it was (``exp(0) * S + 0``).  S == 1 (decode) takes the same
+the state as it was (``exp(0) * S + 0``).  Under autograd each group is
+a checkpoint (`remat`, the reference's `jax.checkpoint` of its group
+body): backward keeps only the groups' boundary states and recomputes
+one group's chunk chain at a time.  S == 1 (decode) takes the same
 path: the chunk is padded with zero k/v and zero log-decay.
 """
 
@@ -25,6 +28,7 @@ from typing import Any, NamedTuple
 import torch
 import torch.nn.functional as F
 
+from . import remat
 from .act_sharding import constrain
 from .config import ModelConfig
 from .layers import dense_init, matmul, slice_layer
@@ -110,6 +114,19 @@ def _wkv_chunk(s_carry, rc, kc, vc, lw, u):
     return s_new, y
 
 
+def _wkv_group(s_carry, rc, kc, vc, lwc, u, n_identity: int):
+    """A group of chunks (nc, B, H, c, hd) and then `n_identity` identity
+    chunks; returns (S', y of each real chunk...)."""
+    ys = []
+    for i in range(rc.shape[0]):
+        s_carry, y = _wkv_chunk(s_carry, rc[i], kc[i], vc[i], lwc[i], u)
+        ys.append(y)
+    for _ in range(n_identity):
+        zero = torch.zeros_like(rc[0])
+        s_carry, _ = _wkv_chunk(s_carry, zero, zero, zero, zero.to(_F32), u)
+    return (s_carry, *ys)
+
+
 def time_mix(x: torch.Tensor, p: dict, li: int, cfg: ModelConfig, state: RWKVState,
              mesh=None) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (y, new_wkv, new_shift); x: (B, S, D), `p` the stacked
@@ -145,13 +162,11 @@ def time_mix(x: torch.Tensor, p: dict, li: int, cfg: ModelConfig, state: RWKVSta
     n_padded = -(-nc // group) * group      # the reference's identity chunks
     s_carry = state.wkv.to(_F32)
     ys = []
-    for i in range(n_padded):
-        if i < nc:
-            s_carry, y = _wkv_chunk(s_carry, rc[i], kc[i], vc[i], lwc[i], u)
-            ys.append(y)
-        else:
-            zero = torch.zeros_like(rc[0])
-            s_carry, _ = _wkv_chunk(s_carry, zero, zero, zero, zero.to(_F32), u)
+    for g0 in range(0, n_padded, group):
+        g1 = min(g0 + group, nc)
+        s_carry, *y = remat.checkpoint(_wkv_group, s_carry, rc[g0:g1], kc[g0:g1],
+                                       vc[g0:g1], lwc[g0:g1], u, g0 + group - g1)
+        ys += y
     y = torch.stack(ys).permute(1, 0, 3, 2, 4).reshape(b, s + pad, h, hd)[:, :s]
 
     # per-head group norm, gate, output projection

@@ -12,8 +12,11 @@ inclusive scan, so the (B, c, d_inner, n) working set stays one chunk
 wide.  The reference composes the prefix with `associative_scan`; the
 port with a Hillis-Steele scan of the same operator, which associates
 the float32 products in another order (the tests state the tolerance).
-Decode (S == 1) is the exact single-step recurrence on the carried
-(B, d_inner, n) state.
+Under autograd each chunk is a checkpoint (`remat`, as the reference's
+`jax.checkpoint` of its chunk body), so backward keeps the chunk
+boundaries' states and recomputes one chunk's (B, c, d_inner, n)
+tensors at a time.  Decode (S == 1) is the exact single-step recurrence
+on the carried (B, d_inner, n) state.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from typing import Any, NamedTuple
 import torch
 import torch.nn.functional as F
 
+from . import remat
 from .act_sharding import constrain
 from .config import ModelConfig
 from .layers import dense_init, matmul
@@ -70,6 +74,15 @@ def _prefix_scan(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.
     return a, b
 
 
+def _chunk(h0, dtc, xfc, btc, ctc, a):
+    """One SSM_CHUNK of the recurrence from state h0: (last state, y)."""
+    dec = torch.exp(dtc[..., None] * a[None, None])
+    drv = (dtc * xfc)[..., None] * btc[:, :, None, :]
+    acc_a, acc_b = _prefix_scan(dec, drv)
+    h_all = acc_a * h0[:, None] + acc_b                   # (B, c, d_in, n)
+    return h_all[:, -1], torch.einsum("bcdn,bcn->bcd", h_all, ctc)
+
+
 def ssm_branch(x: torch.Tensor, pl: dict, cfg: ModelConfig, state: SSMState,
                mesh=None) -> tuple[torch.Tensor, SSMState]:
     """One layer's SSM branch with sliced params (no layer axis).
@@ -101,13 +114,9 @@ def ssm_branch(x: torch.Tensor, pl: dict, cfg: ModelConfig, state: SSMState,
         ys = []
         for i in range(dt.shape[1] // SSM_CHUNK):
             sl = slice(i * SSM_CHUNK, (i + 1) * SSM_CHUNK)
-            dtc, xfc, btc, ctc = dt[:, sl], xf_p[:, sl], b_t[:, sl], c_t[:, sl]
-            dec = torch.exp(dtc[..., None] * a[None, None])
-            drv = (dtc * xfc)[..., None] * btc[:, :, None, :]
-            acc_a, acc_b = _prefix_scan(dec, drv)
-            h_all = acc_a * h_fin[:, None] + acc_b          # (B, c, d_in, n)
-            ys.append(torch.einsum("bcdn,bcn->bcd", h_all, ctc))
-            h_fin = h_all[:, -1]
+            h_fin, yc = remat.checkpoint(_chunk, h_fin, dt[:, sl], xf_p[:, sl],
+                                         b_t[:, sl], c_t[:, sl], a)
+            ys.append(yc)
         y = torch.cat(ys, dim=1)[:, :s]
 
     y = y + pl["d_skip"][None, None] * xf

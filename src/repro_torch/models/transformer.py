@@ -53,6 +53,7 @@ from repro_torch.cim import current_token_ids, token_stream_ids
 from repro_torch.distributed.collectives import all_reduce_axes, mean_over, reduce_from
 from repro_torch.distributed.sharding import is_dtensor
 
+from . import remat
 from . import rwkv6 as rwkv_mod
 from . import ssm as ssm_mod
 from .act_sharding import batch_rows, constrain, row_token_ids, rows_like
@@ -296,6 +297,12 @@ def output_logits(params, x, cfg: ModelConfig, mesh=None) -> torch.Tensor:
 # --------------------------------------------------------------------------
 # Full-sequence forward (training / prefill)
 # --------------------------------------------------------------------------
+def _layer(rematerialise: bool, body, *args):
+    """One layer body, rematerialised in backward when asked (the
+    reference's ``jax.checkpoint(body) if cfg.remat``)."""
+    return remat.checkpoint(body, *args) if rematerialise else body(*args)
+
+
 def forward(params, batch: dict, cfg: ModelConfig, mesh=None, *,
             collect_cache: bool = False, pos_offset: int = 0):
     """Full-sequence forward.  batch: tokens (B, S) or embeds (B, S, D),
@@ -354,17 +361,21 @@ def _forward(params, batch: dict, cfg: ModelConfig, mesh, collect_cache: bool,
     lay = params["layers"]
     aux = torch.zeros((), dtype=_F32, device=x.device)
     ks, vs = [], []
-    for idx in range(cfg.n_layers):
-        x, aux_i, k, v = _attn_block_train(
-            x, slice_layer(lay, idx), cfg, positions, window=cfg.sliding_window,
-            mesh=mesh)
-        if per_layer_cross:
-            cl = slice_layer(params["cross_layers"], idx)
+
+    def body(x, pl, cl):
+        x, aux_i, k, v = _attn_block_train(x, pl, cfg, positions,
+                                           window=cfg.sliding_window, mesh=mesh)
+        if cl is not None:
             x = _cross_block(x, cl, _cond_kv(cond, cl, cfg), cfg)
+        return (x, aux_i, k, v) if collect_cache else (x, aux_i)
+
+    for idx in range(cfg.n_layers):
+        cl = slice_layer(params["cross_layers"], idx) if per_layer_cross else None
+        x, aux_i, *kv = _layer(cfg.remat, body, x, slice_layer(lay, idx), cl)
         aux = aux + aux_i
         if collect_cache:
-            ks.append(k)
-            vs.append(v)
+            ks.append(kv[0])
+            vs.append(kv[1])
     caches = {"k": torch.stack(ks), "v": torch.stack(vs)} if collect_cache else None
     return output_logits(params, x, cfg, mesh), aux / cfg.n_layers, caches
 
@@ -373,14 +384,19 @@ def _forward_rwkv(params, x, cfg: ModelConfig, mesh, collect_cache: bool):
     lay = params["layers"]
     st0 = rwkv_mod.init_rwkv_state(cfg, x.shape[0], device=x.device)
     states = []
-    for idx in range(cfg.n_layers):
+
+    def body(x, lay, idx):
         x = constrain(x, mesh, ("batch", None, None))
         y, wkv_fin, shift_t = rwkv_mod.time_mix(x, lay, idx, cfg, st0, mesh)
         x = x + y
         cm, shift_c = rwkv_mod.channel_mix(x, lay, idx, cfg, st0, mesh)
         x = constrain(x + cm, mesh, _res_spec(cfg))
+        return (x, wkv_fin, shift_t, shift_c) if collect_cache else (x,)
+
+    for idx in range(cfg.n_layers):
+        x, *st = _layer(cfg.remat, body, x, lay, idx)
         if collect_cache:
-            states.append((wkv_fin, shift_t, shift_c))
+            states.append(tuple(st))
     caches = None
     if collect_cache:
         caches = {name: torch.stack([st[i] for st in states])
@@ -396,8 +412,8 @@ def _forward_hymba(params, x, cfg: ModelConfig, mesh, positions, collect_cache: 
     aux = torch.zeros((), dtype=_F32, device=x.device)
     kv_global, kv_swa, ssm_finals = [], [], []
     st0 = ssm_mod.init_ssm_state(cfg, x.shape[0], device=x.device)
-    for li, win in _hymba_layers(cfg):
-        pl = slice_layer(lay, li)
+
+    def body(x, pl, spl, bn, win):
         x = constrain(x, mesh, ("batch", None, None))
         q, k, v = _project_qkv(x, pl, cfg, positions)
         q = constrain(q, mesh, ("batch", None, "model", None))
@@ -406,15 +422,25 @@ def _forward_hymba(params, x, cfg: ModelConfig, mesh, positions, collect_cache: 
         attn = chunked_causal_attention(
             q, k, v, chunk_q=cfg.attn_chunk_q, chunk_kv=cfg.attn_chunk_kv, window=win)
         attn = matmul(attn.reshape(*x.shape[:2], cfg.q_dim), pl["wo"])
-        ssm_out, ssm_fin = ssm_mod.ssm_branch(x, slice_layer(ssm_p, li), cfg, st0, mesh)
-        x = _hymba_mix(x, attn, ssm_out, params["branch_norm"][li], cfg)
+        ssm_out, ssm_fin = ssm_mod.ssm_branch(x, spl, cfg, st0, mesh)
+        x = _hymba_mix(x, attn, ssm_out, bn, cfg)
         ff, aux_i = _ffn(x, pl, cfg, mesh)
         x = constrain(x + ff, mesh, _res_spec(cfg))
-        aux = aux + aux_i
-        if collect_cache:
-            kv = (k[:, -win:], v[:, -win:]) if win else (k, v)
-            (kv_global if win == 0 else kv_swa).append(kv)
-            ssm_finals.append(ssm_fin.h)
+        return (x, aux_i, k, v, ssm_fin.h) if collect_cache else (x, aux_i)
+
+    for start, end, win in _hymba_runs(cfg):
+        # The reference scans a run of layers with one window under its
+        # checkpoint, and calls a run of one layer plainly.
+        for li in range(start, end):
+            x, aux_i, *kvh = _layer(cfg.remat and end - start > 1, body, x,
+                                    slice_layer(lay, li), slice_layer(ssm_p, li),
+                                    params["branch_norm"][li], win)
+            aux = aux + aux_i
+            if collect_cache:
+                k, v, h = kvh
+                kv = (k[:, -win:], v[:, -win:]) if win else (k, v)
+                (kv_global if win == 0 else kv_swa).append(kv)
+                ssm_finals.append(h)
     caches = None
     if collect_cache:
         caches = {
@@ -436,17 +462,21 @@ def _forward_grouped_cross(params, x, cond, cfg: ModelConfig, mesh, positions,
     lay = params["layers"]
     aux = torch.zeros((), dtype=_F32, device=x.device)
     ks, vs = [], []
+
+    def body(x, pl):
+        x, aux_i, k, v = _attn_block_train(x, pl, cfg, positions,
+                                           window=cfg.sliding_window, mesh=mesh)
+        return (x, aux_i, k, v) if collect_cache else (x, aux_i)
+
     for gi in range(n_groups):
         cl = slice_layer(params["cross_layers"], gi)
         x = _cross_block(x, cl, _cond_kv(cond, cl, cfg), cfg)
         for li in range(gi * per, (gi + 1) * per):
-            x, aux_i, k, v = _attn_block_train(
-                x, slice_layer(lay, li), cfg, positions, window=cfg.sliding_window,
-                mesh=mesh)
+            x, aux_i, *kv = _layer(cfg.remat, body, x, slice_layer(lay, li))
             aux = aux + aux_i
             if collect_cache:
-                ks.append(k)
-                vs.append(v)
+                ks.append(kv[0])
+                vs.append(kv[1])
     caches = {"k": torch.stack(ks), "v": torch.stack(vs)} if collect_cache else None
     return output_logits(params, x, cfg, mesh), aux / cfg.n_layers, caches
 

@@ -80,6 +80,10 @@ class EnergyLedger:
     def summary(self) -> dict[str, dict[str, float]]:
         return {name: tot.as_dict() for name, tot in sorted(self._phases.items())}
 
+    def total(self, field: str = "energy_pj") -> float:
+        """`field` summed over every phase."""
+        return sum(getattr(t, field) for t in self._phases.values())
+
     def reset(self) -> None:
         self._phases = {}
 

@@ -455,6 +455,12 @@ def test_carried_deployment_materializes_like_reference(tiny_deployment):
         np.testing.assert_array_equal(b.numpy(), a)
 
 
+def test_carried_deployment_num_columns_is_the_references(tiny_deployment):
+    _, _, jmodel, tmodel = tiny_deployment
+    assert tmodel.num_columns == jmodel.num_columns > 0
+    assert tmodel.num_columns == sum(st.g.shape[0] for st in tmodel.arrays.values())
+
+
 def test_executor_ideal_logits_match_reference(tiny_deployment):
     jcfg, tcfg, jmodel, tmodel = tiny_deployment
     toks = np.random.RandomState(20).randint(0, 32, (2, 6))

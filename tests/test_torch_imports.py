@@ -98,9 +98,13 @@ LAUNCH_SLICE_MODULES = (
 )
 
 
+# The rematerialisation slice (the reference's `jax.checkpoint` places).
+REMAT_SLICE_MODULES = ("models/remat.py",)
+
+
 @pytest.mark.parametrize("rel", SLICE_MODULES + FAULT_SLICE_MODULES + TRAIN_SLICE_MODULES
                          + FAMILY_SLICE_MODULES + MESH_SLICE_MODULES
-                         + LAUNCH_SLICE_MODULES)
+                         + LAUNCH_SLICE_MODULES + REMAT_SLICE_MODULES)
 def test_slice_module_is_checked(rel):
     assert PORT / rel in FILES
 
@@ -163,3 +167,64 @@ def test_not_ported_names_are_the_references():
     for rel, names in NOT_PORTED_NAMES.items():
         assert names <= _public_names(REFERENCE / rel)
         assert not names & _public_names(PORT / rel)
+
+
+# Reference class members with no counterpart in the port, and why.
+NOT_PORTED_MEMBERS = {
+    # JAX pytree hooks: the port's trees are walked by `repro_torch.pytree`.
+    ("obs/digest.py", "StreamingDigest"): {"tree_flatten", "tree_unflatten"},
+    ("obs/metrics.py", "MetricAccumulator"): {"tree_flatten", "tree_unflatten"},
+    # The JAX pytree layout of the deployed tree; the port keeps the
+    # tree's structure as named leaves (`names`, `digital`).
+    ("core/programmer.py", "DeployedModel"): {"leaves", "slots", "treedef"},
+    # Read from XLA's HLO text, which PyTorch does not make.
+    ("launch/roofline.py", "RooflineTerms"): {"hlo_bytes", "hlo_flops"},
+}
+# The reference's WV loop carry for `lax.while_loop`; the port's loop is
+# a Python loop over plain tensors.
+NOT_PORTED_CLASSES = {("core/wv.py", "_LoopState")}
+
+
+def _class_members(path: pathlib.Path) -> dict[str, set[str]]:
+    """Each top-level class's public methods, properties and class
+    attributes (dataclass and named-tuple fields included)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    out = {}
+    for node in tree.body:
+        if not isinstance(node, ast.ClassDef):
+            continue
+        names = set()
+        for b in node.body:
+            if isinstance(b, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                names.add(b.name)
+            elif isinstance(b, ast.Assign):
+                names.update(t.id for t in b.targets if isinstance(t, ast.Name))
+            elif isinstance(b, ast.AnnAssign) and isinstance(b.target, ast.Name):
+                names.add(b.target.id)
+        out[node.name] = {n for n in names if not n.startswith("_")}
+    return out
+
+
+CLASS_FILES = [rel for rel in REFERENCE_FILES
+               if rel not in NOT_PORTED_FILES and _class_members(REFERENCE / rel)]
+
+
+@pytest.mark.parametrize("rel", CLASS_FILES)
+def test_port_classes_have_every_member_of_the_reference(rel):
+    port = _class_members(PORT / rel)
+    for cls, names in _class_members(REFERENCE / rel).items():
+        if (rel, cls) in NOT_PORTED_CLASSES:
+            assert cls not in port
+            continue
+        assert cls in port, f"{rel}: the port has no class {cls}"
+        missing = names - port[cls] - NOT_PORTED_MEMBERS.get((rel, cls), set())
+        assert not missing, f"{rel}: the port's {cls} lacks {sorted(missing)}"
+
+
+def test_not_ported_members_are_the_references():
+    for (rel, cls), names in NOT_PORTED_MEMBERS.items():
+        ref, port = _class_members(REFERENCE / rel), _class_members(PORT / rel)
+        assert names <= ref[cls]
+        assert not names & port[cls]
+    for rel, cls in NOT_PORTED_CLASSES:
+        assert cls in _class_members(REFERENCE / rel)

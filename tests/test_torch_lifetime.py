@@ -221,7 +221,8 @@ def test_apply_refresh_matches_reference(jmodel, policy, method):
     else:
         np.testing.assert_array_equal(out.flagged, np.asarray(wout.flagged))
     for f in ("verify_latency_ns", "verify_energy_pj", "program_latency_ns",
-              "program_energy_pj", "write_pulses", "gave_up_cells", "retry_pulses"):
+              "program_energy_pj", "write_pulses", "gave_up_cells", "retry_pulses",
+              "maintenance_energy_pj", "maintenance_latency_ns"):
         np.testing.assert_allclose(getattr(out, f), getattr(wout, f),
                                    rtol=COST_RTOL if method != JWVMethod.MRA else 0.05,
                                    err_msg=f)

@@ -552,6 +552,23 @@ def test_disabled_silences_spans_and_ledger_as_the_reference():
     assert obs.ledger.FIELDS == jobs.ledger.FIELDS
 
 
+def test_ledger_total_matches_the_reference():
+    """`EnergyLedger.total(field)`: each field summed over the phases, as
+    the reference sums it, on the same charges."""
+    got = {}
+    for name, pkg in (("jax", jobs), ("port", obs)):
+        pkg.reset_all()
+        pkg.ledger.charge("deploy", energy_pj=2.5, latency_ns=10.0, reads=3.0)
+        pkg.ledger.charge("serve.analog", energy_pj=0.25, tokens=4.0, reads=8.0)
+        pkg.ledger.charge("deploy", energy_pj=1.0, latency_ns=5.0)
+        led = pkg.ledger.ledger
+        got[name] = [led.total()] + [led.total(f) for f in pkg.ledger.FIELDS]
+        pkg.reset_all()
+        assert led.total() == 0.0
+    assert got["port"] == got["jax"]
+    assert got["port"][0] == 3.75
+
+
 def test_metric_accumulator_matches_the_reference():
     a = obs.MetricAccumulator.zeros(["tokens", "reads"], device="cpu")
     b = a.inc("tokens", 2.0).inc("reads", torch.tensor(3.5))

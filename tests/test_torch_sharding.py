@@ -469,6 +469,20 @@ def test_elastic_restore_onto_another_mesh(job):
         assert t["elastic_rel"] <= 1e-6, r
 
 
+def test_sharded_remat_step_matches_plain(job):
+    """olmoe's smoke config on the (2, 4) mesh, expert parallelism
+    included: two sharded steps with layer remat leave every rank's
+    blocks bitwise as without it, and the remat steps checkpointed one
+    body per layer per step beyond the always-on attention chunks."""
+    outs, _ = job
+    for r, o in enumerate(outs):
+        plain, rem = o["remat"][False], o["remat"][True]
+        assert rem["state"] == plain["state"] and rem["loss"] == plain["loss"], r
+        assert rem["checkpoints"] - plain["checkpoints"] == 2 * rem["layers"], r
+        assert plain["checkpoints"] > 0, r
+    assert len({o["remat"][True]["loss"] for o in outs}) == 1
+
+
 @pytest.mark.parametrize("arch", list(ARCHS))
 def test_loss_fn_mesh_matches_unsharded(arch, job):
     """Rank 0 holds the unsharded references; every rank returns the

@@ -206,6 +206,31 @@ def check_loss(jcfg, tcfg, params: dict, batch: dict) -> None:
                                    err_msg=k)
 
 
+def _j_loss_and_grads(params, batch, cfg):
+    return jax.value_and_grad(lambda p: j_loss_fn(p, batch, cfg), has_aux=True)(params)
+
+
+def check_grads(jcfg, tcfg, params: dict, batch: dict):
+    """`loss_fn` and its gradient against the reference's
+    `jax.value_and_grad`: the loss within LOSS_RTOL, each leaf within 1e-4
+    of its largest (`test_torch_train.test_grads_match_per_leaf`'s
+    tolerance).  Returns the port's (loss, grads)."""
+    from repro_torch.training import _grads_of
+
+    (jl, _), jg = jitted(_j_loss_and_grads, jcfg)(jax.tree.map(jnp.asarray, params),
+                                                   to_jax(batch))
+    (tl, _), tg = _grads_of(params_from_numpy(params, device="cpu"), to_torch(batch), tcfg)
+    np.testing.assert_allclose(float(tl), float(jl), rtol=LOSS_RTOL)
+    jflat = jax.tree_util.tree_flatten_with_path(jg)[0]
+    tflat = pytree.leaves_with_path(tg)
+    assert [jax.tree_util.keystr(p) for p, _ in jflat] == [k for k, _ in tflat]
+    for (path, a), (_, b) in zip(jflat, tflat):
+        a = np.asarray(a, np.float32)
+        err = np.abs(b.float().numpy() - a).max() / (np.abs(a).max() + 1e-30)
+        assert err <= 1e-4, (jax.tree_util.keystr(path), err)
+    return tl, tg
+
+
 def check_train_step(jcfg, tcfg, batch: dict, lr: float = 1e-3) -> None:
     """One AdamW step from the reference's initial `TrainState`."""
     with legacy():

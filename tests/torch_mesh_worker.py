@@ -73,7 +73,8 @@ def _init(rank: int, world: int, workdir: str, timeout=TIMEOUT) -> None:
 
 def run(rank: int, world: int, workdir: str) -> None:
     """The 8-rank job: MoE EP, the sharded train step, elastic restore,
-    every registry smoke config's sharded loss, `compressed_psum`, then
+    every registry smoke config's sharded loss, `compressed_psum`, the
+    sharded step with layer remat, then
     deploy and serve on meshes (`_serve`, last: its references run on
     different ranks after the last collective)."""
     _init(rank, world, workdir)
@@ -86,6 +87,7 @@ def run(rank: int, world: int, workdir: str) -> None:
                "train": _train(mesh, payload["train"], workdir),
                "losses": _losses(mesh),
                "compress": _compress(payload["compress"]),
+               "remat": _remat(mesh),
                "serve": _serve(mesh, payload["sched_params"])}
         with open(os.path.join(workdir, f"out_{rank}.pkl"), "wb") as f:
             pickle.dump(out, f)
@@ -285,6 +287,30 @@ def _losses(mesh) -> dict:
             ref_loss=float(ref["ce"]) + cfg.router_aux_coef * float(aux),
             logits_rel=float((logits - ref_logits).abs().max() / ref_logits.abs().max()),
             logits_shape=tuple(logits.shape) == tuple(ref_logits.shape))
+    return out
+
+
+def _remat(mesh) -> dict:
+    """Two sharded train steps of olmoe's smoke config (expert parallelism
+    over "model") with layer remat and without: each rank's blocks of the
+    state after them, as digests, and the layer checkpoints each run made
+    (the recompute re-issues the MoE's collectives in backward)."""
+    from repro_torch.models import remat
+    from repro_torch.training import init_train_state
+
+    out = {}
+    for on in (False, True):
+        cfg = get_smoke_config("olmoe-1b-7b").replace(remat=on)
+        opt = AdamWConfig(lr_peak=1e-3)
+        state0 = init_train_state(11, cfg, opt, device="cpu")
+        st = shard_tree(state0, state_sharding(mesh, state0, cfg))
+        step = make_train_step(cfg, opt, mesh, total_steps=10)
+        n0 = remat.checkpoints
+        for i in range(2):
+            st, m = step(st, shard_batch(mesh, _train_batch(cfg, seed=20 + i), BATCH))
+        out[on] = dict(state=_digest(pytree.tree_map(lambda x: x.to_local(), st)),
+                       loss=float(m["loss"]), checkpoints=remat.checkpoints - n0,
+                       layers=cfg.n_layers)
     return out
 
 
